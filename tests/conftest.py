@@ -22,3 +22,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: multi-process fault-injection tests (subprocess "
         "JAX compiles); deselect with -m 'not slow'")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (hand-written kernels); skips "
+        "without one")
