@@ -27,9 +27,9 @@
 // whatever the order of summation, so results equal the plain PyTorch
 // version bit for bit.  wgmma, TMA and a sparse M are left for later work.
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC -o libfused_scan.so fused_scan.cu
-// The C entry points return cudaError_t values (0 = success).
+// Build: see repro_torch/kernels/build.py (nvcc -gencode
+// arch=compute_90a,code=sm_90a, linked with the other kernels into one
+// library).  The C entry points return cudaError_t values (0 = success).
 
 #include <climits>
 #include <cuda_runtime.h>

@@ -1,10 +1,10 @@
-"""Wrapper, build and launch counter of the Hopper fused-scan kernel.
+"""Wrapper and launch counter of the Hopper fused-scan kernel.
 
 The kernel (``csrc/fused_scan.cu``) replaces the TPU kernel
-``src/repro/kernels/fused_scan.py:fused_scan_pallas``.  It is compiled with
-``nvcc`` for ``sm_90a`` at first use, from the source in this package, into
-``build/repro_torch/`` at the repository root, and bound through ``ctypes``.
-Nothing is built or loaded when this module is imported.
+``src/repro/kernels/fused_scan.py:fused_scan_pallas``.  It lives in the
+port's one kernel library (:mod:`repro_torch.kernels.build`), built with
+``nvcc`` for ``sm_90a`` at first use and bound through ``ctypes``.  Nothing
+is built or loaded when this module is imported.
 
 Use :func:`repro_torch.kernels.ops.cer_pipeline`, which routes CUDA tensors
 here and CPU tensors to the plain version in :mod:`repro_torch.kernels.ref`.
@@ -12,21 +12,11 @@ here and CPU tensors to the plain version in :mod:`repro_torch.kernels.ref`.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
 from typing import Optional, Sequence, Tuple
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_scan.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from .build import LIBRARY
 
 MAX_BITS = 14       # predicates per query
 MAX_QUERIES = 8     # queries per launch
@@ -38,64 +28,27 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    fallback = Path("/usr/local/cuda/bin/nvcc")
-    if fallback.exists():
-        return str(fallback)
-    raise RuntimeError("nvcc not found: the fused-scan kernel is built from "
-                       f"{SOURCE} at first use and needs the CUDA toolkit")
-
-
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
 class FusedScanKernel:
-    """The built library and its counters.
+    """The kernel's binding and its launch counter.
 
-    ``launches`` counts kernel launches (one per :meth:`__call__`);
-    ``loads`` counts builds or loads of the library (1 per process);
-    ``build_log`` keeps nvcc's register and spill report (``-Xptxas -v``).
+    ``launches`` counts kernel launches (one per :meth:`__call__`).
     """
 
     def __init__(self):
         self.launches = 0
-        self.loads = 0
-        self.build_seconds = 0.0
-        self.build_log = ""
         self._lib = None
         self._smem_limit = {}
 
     # ------------------------------------------------------------------
     def library(self) -> ctypes.CDLL:
-        """Build (if the source changed) and load the library, once."""
+        """The shared library, with this kernel's entry points bound."""
         if self._lib is not None:
             return self._lib
-        t0 = time.perf_counter()
-        src = SOURCE.read_bytes()
-        digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        lib_path = BUILD_DIR / f"libfused_scan_{digest}.so"
-        if not lib_path.exists():
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            try:
-                proc = subprocess.run(
-                    [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                    capture_output=True, text=True)
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-                self.build_log = proc.stderr
-                os.replace(tmp, lib_path)
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
-        lib = ctypes.CDLL(str(lib_path))
+        lib = LIBRARY.get()
         lib.fused_scan_launch.restype = _I
         lib.fused_scan_launch.argtypes = (
             [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -103,8 +56,6 @@ class FusedScanKernel:
         lib.fused_scan_max_dynamic_smem.restype = _I
         lib.fused_scan_max_dynamic_smem.argtypes = [_I, ctypes.POINTER(_I)]
         self._lib = lib
-        self.loads += 1
-        self.build_seconds = time.perf_counter() - t0
         return lib
 
     def smem_limit(self, max_s: int) -> int:

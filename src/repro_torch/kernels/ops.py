@@ -1,6 +1,7 @@
-"""Router of the counting pipeline: the Hopper kernel or its plain version.
+"""Routers of the device kernels: the Hopper kernel or its plain version.
 
-:func:`cer_pipeline` is the one entry point of the device CER pipeline:
+:func:`arena_block_update` routes the block tECS builder the same way as
+:func:`cer_pipeline`, the one entry point of the device CER pipeline:
 
 * ``impl="fused"`` on CUDA tensors launches the hand-written kernel
   (:mod:`repro_torch.kernels.fused_scan`) or raises ``ValueError`` for
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from . import ref
+from .arena_update import KERNEL as ARENA_KERNEL
 from .fused_scan import KERNEL
 from .window import DeviceWindow
 
@@ -125,6 +127,61 @@ def cer_pipeline(attrs: torch.Tensor,
         matches, trace = res
         return matches, state, trace
     return res, state
+
+
+def arena_block_update(cells0, class_ids: torch.Tensor, hits, start,
+                       valid_counts, *, lay: ref.ArenaBlockLayout,
+                       ptab: torch.Tensor, finals_sq, n_seg: int = 1,
+                       expire: Optional[torch.Tensor] = None,
+                       consume: Optional[torch.Tensor] = None,
+                       impl: str = "fused"):
+    """Block tECS builder over one chunk: the Hopper kernel or its plain
+    version.
+
+    cells0: four (B, W, S) int32 tensors (node id / is-union / left /
+    right: the chunk-start cell table).  class_ids: (T, B) int32; hits:
+    (T, B, Q) bool or int32; start/valid_counts: scalars or (B,).  ptab:
+    (C, S, K, 3) int32 packed predecessor tables on the tensors' device.
+    n_seg: parallel chunk segments (:func:`ref.pick_segments`).  expire:
+    optional (T, B, W) time-eviction masks; consume: optional (T, B, S)
+    CONSUME BY ANY clear masks.  Returns ``(cells_T, valid, left, right,
+    roots)``: records (T, B, M) and roots (T, B, Q) on virtual node ids.
+
+    CUDA tensors with ``impl="fused"`` go to the kernel
+    (:mod:`repro_torch.kernels.arena_update`), which raises ``ValueError``
+    for shapes it does not take; CPU tensors or ``impl="ref"`` go to
+    :func:`ref.arena_build_ref`.  There is no silent fallback.
+    """
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    T, B = class_ids.shape
+    dev = class_ids.device
+    start = ref.lane_vector(start, B, dev).to(torch.int32)
+    valid_counts = ref.lane_vector(valid_counts, B, dev,
+                                   "valid_counts").to(torch.int32)
+    if impl == "ref" or dev.type == "cpu":
+        return ref.arena_build_ref(cells0, class_ids, hits, start,
+                                   valid_counts, lay=lay, ptab=ptab,
+                                   finals_sq=finals_sq, n_seg=n_seg,
+                                   expire=expire, consume=consume)
+    if dev.type != "cuda":
+        raise ValueError(f"arena_block_update runs on CUDA or the CPU, got "
+                         f"{dev}")
+    xs, cells0_seg = ref.segment_operands(
+        tuple(c.to(torch.int32).contiguous() for c in cells0), class_ids,
+        hits, start, valid_counts, lay=lay, n_seg=n_seg, expire=expire,
+        consume=consume)
+    extra = list(xs[5:])
+    exp_s = extra.pop(0) if expire is not None else None
+    con_s = extra.pop(0) if consume is not None else None
+    cells_fin, recs, roots = ARENA_KERNEL(
+        cells0_seg, xs[:5], lay=lay, ptab=ptab,
+        finals_sq=torch.as_tensor(finals_sq).cpu().numpy(), expire=exp_s,
+        consume=con_s)
+    return ref.assemble_records(cells_fin,
+                                tuple(r.movedim(0, 1) for r in recs),
+                                roots.movedim(0, 1), T, B, lay=lay,
+                                n_seg=n_seg)
 
 
 def _clone_state(state):

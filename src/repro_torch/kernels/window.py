@@ -197,7 +197,10 @@ def init_state(window: DeviceWindow, batch: int, num_states: int,
 def window_overflow(state: State) -> np.ndarray:
     """Per-lane latched rate-bound flags (all-False for count windows)."""
     if isinstance(state, dict):
-        return state["ovf"].cpu().numpy()
+        if "ovf" in state:
+            return state["ovf"].cpu().numpy()
+        # the streaming engine's {"C": <window state>, "arena": ...}
+        return window_overflow(state["C"])
     return np.zeros(state.shape[0], bool)
 
 

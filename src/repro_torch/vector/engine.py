@@ -1,9 +1,12 @@
-"""Device CER engine: recognition and counting over B streams.
+"""Device CER engine: recognition, counting and enumeration over B streams.
 
 Per stream position the engine computes the exact number of complex events
 closing there, with the windowed counting-semiring scan of
 :func:`repro_torch.kernels.ops.cer_pipeline` (the Hopper fused-scan kernel
-on CUDA).  For fixed-size chunks over unbounded streams use
+on CUDA), and with :meth:`VectorEngine.run_enumerate` also the complex
+events themselves, through the device tECS arena
+(:mod:`repro_torch.vector.tecs_arena`).  For fixed-size chunks over
+unbounded streams use
 :class:`repro_torch.vector.streaming.StreamingVectorEngine`.
 
 The B axis carries independent, pre-partitioned substreams.
@@ -11,15 +14,16 @@ The B axis carries independent, pre-partitioned substreams.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..core.events import Event
+from ..core.events import ComplexEvent, Event
 from ..core.query import CompiledQuery, compile_query
 from ..kernels import ops
 from ..kernels import window as wkern
+from . import tecs_arena
 from .encoder import EventEncoder
 from .symbolic import SymbolicCEA, compile_symbolic
 
@@ -130,7 +134,8 @@ class VectorEngine:
 
     def __init__(self, query: Union[str, CompiledQuery],
                  epsilon: Optional[int] = None, impl: Optional[str] = None,
-                 max_window_events: Optional[int] = None, device=None):
+                 max_window_events: Optional[int] = None, device=None,
+                 arena_impl: str = "block"):
         self.device = resolve_device(device)
         compiled = compile_query(query) if isinstance(query, str) else query
         self.compiled = compiled
@@ -139,6 +144,9 @@ class VectorEngine:
         self.semantics = compiled.semantics
         self.strategies = (compiled.query.strategy,)
         self.consumes = (bool(compiled.query.consume_on_match),)
+        self.native_semantics = (self.semantics.construction != "ALL"
+                                 or self.semantics.latest
+                                 or self.semantics.consume)
         self.symbolic: SymbolicCEA = compile_symbolic(
             compiled.cea, strategy=self.semantics.construction)
         self.encoder = EventEncoder.from_registry(compiled.cea.registry)
@@ -151,6 +159,9 @@ class VectorEngine:
         if self.impl not in ops.IMPLS:
             raise ValueError(f"impl must be one of {ops.IMPLS}, got "
                              f"{self.impl!r}")
+        # "block" (the builder kernel route) or "fold" (the per-event
+        # reference fold)
+        self.arena_impl = tecs_arena.check_arena_impl(arena_impl)
         sym = self.symbolic
         init_mask = np.zeros(sym.num_states, np.float32)
         init_mask[sym.initial] = 1.0
@@ -227,12 +238,35 @@ class VectorEngine:
         return list(zip(t_idx.tolist(), b_idx.tolist()))
 
     # ------------------------------------------------------------------
-    def arena_tables(self):
-        raise NotImplementedError("the tECS arena is " + _NOT_PORTED)
+    def arena_tables(self) -> tecs_arena.ArenaTables:
+        """Static predecessor tables driving the device tECS arena."""
+        tbl = getattr(self, "_arena_tables", None)
+        if tbl is None:
+            tbl = tecs_arena.tables_from_symbolic(self.symbolic)
+            self._arena_tables = tbl
+        return tbl
 
-    def run_enumerate(self, *args, **kwargs):
-        raise NotImplementedError("enumeration (tECS arena) is "
-                                  + _NOT_PORTED)
+    def run_enumerate(self, streams: Sequence[Sequence[Event]],
+                      start_pos: int = 0, arena_capacity: int = 1 << 15,
+                      strategy: Optional[str] = None
+                      ) -> Tuple[np.ndarray,
+                                 Dict[Tuple[int, int], List[ComplexEvent]]]:
+        """Counting pipeline, device arena and enumeration in one call.
+
+        The predicates, the counting scan and the arena run on the engine's
+        device (:func:`repro_torch.vector.tecs_arena.run_enumerate`); the
+        host fetches the arena and walks Algorithm 2 (output-linear delay,
+        no event replay).  ``strategy=None`` enumerates under the query's
+        own compiled semantics; an explicit strategy post-filters, and only
+        plain-ALL engines accept one.
+
+        Returns ``(counts (T, B) int64, matches)`` with ``matches`` mapping
+        each hit ``(t, b)`` to its complex events.
+        """
+        counts, res = tecs_arena.run_enumerate(
+            self, streams, start_pos=start_pos,
+            arena_capacity=arena_capacity, strategy=strategy)
+        return counts[:, :, 0], {(t, b): v for (t, b, _q), v in res.items()}
 
     def partitioned_streaming(self, *args, **kwargs):
         raise NotImplementedError("PartitionedStreamingEngine is "

@@ -1,4 +1,4 @@
-"""The Hopper fused-scan kernel against its plain PyTorch version, on a card.
+"""The Hopper kernels against their plain PyTorch versions, on a card.
 
 Every test here needs a CUDA device and skips without one; none imports
 JAX.  Run them on the GPU machine with
@@ -6,17 +6,20 @@ JAX.  Run them on the GPU machine with
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerance 0: counts are f32 integers, exact below 2^24 in any order of
-summation, so kernel and plain version agree bit for bit.
+summation, and the arena builder's records, roots and cells are int32 node
+ids, so kernel and plain version agree bit for bit.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.data import StreamSpec, random_stream
-from repro_torch.kernels import fused_scan
+from repro_torch.kernels import arena_update, fused_scan
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as kref
 from repro_torch.kernels import window as wkern
 from repro_torch.vector import StreamingVectorEngine, VectorEngine
+from repro_torch.vector import tecs_arena
 
 pytestmark = pytest.mark.cuda
 
@@ -144,3 +147,140 @@ def test_router_raises_on_what_the_kernel_refuses(dev):
             torch.from_numpy(M).to(dev), torch.from_numpy(finals).to(dev),
             torch.zeros((B, 8, S), device=dev),
             init_mask=torch.from_numpy(init).to(dev), epsilon=3)
+
+
+# ---------------------------------------------------------------------------
+# the block tECS builder
+# ---------------------------------------------------------------------------
+
+STOCK_Q1 = """SELECT * FROM S
+    WHERE SELL AS msft ; BUY AS oracle ; BUY AS csco ; SELL AS amat
+    FILTER msft[name = 'MSFT'] AND oracle[name = 'ORCL'] AND
+    csco[name = 'CSCO'] AND amat[name = 'AMAT']
+    WITHIN 30000 [stock_time]"""
+# (query, max_window_events): S = 4, 9 and 26, i.e. the 8/16/32 buckets;
+# a count and a time window
+ARENA_QUERIES = [
+    ("SELECT * FROM S WHERE A1 ; A2+ ; A3 WITHIN 20 events", None),
+    (STOCK_Q1, 40),
+    ("SELECT * FROM S WHERE A1 ; A2+ ; A3 ; A4+ ; A5 WITHIN 12 events",
+     None),
+]
+
+
+def arena_operands(dev, query, mwe, consume, B, T, seed):
+    """Random chunk operands for the builder of ``query``'s tables: a
+    sparse chunk-start cell table, classes, hits only on live steps,
+    a quarter of the lanes at start 0 and some lanes dead."""
+    ve = VectorEngine(query, max_window_events=mwe, device=dev)
+    at = ve.arena_tables()
+    cap = 1 << 12
+    lay = tecs_arena._block_layout(at, ve.ring, ve.epsilon, cap)
+    W, S, Q = lay.W, lay.S, lay.Q
+    rng = np.random.default_rng(seed)
+    cid = rng.integers(0, cap, (B, W, S)).astype(np.int32)
+    cid[rng.random((B, W, S)) < 0.7] = -1
+    cells0 = tuple(torch.from_numpy(x).to(dev) for x in (
+        cid, rng.integers(0, 2, (B, W, S)).astype(np.int32),
+        rng.integers(-1, cap, (B, W, S)).astype(np.int32),
+        rng.integers(-1, cap, (B, W, S)).astype(np.int32)))
+    start = rng.integers(0, 10 ** 6, B)
+    start[: B // 4] = 0
+    valid = rng.integers(0, T + 1, B)
+    valid[-2:] = 0
+    live = np.arange(T)[:, None] < valid[None, :]
+    hits = (rng.random((T, B, Q)) < 0.3) & live[:, :, None]
+    cls = rng.integers(0, at.pred_idx.shape[0], (T, B)).astype(np.int32)
+    kw = {}
+    if ve.window.is_time:
+        kw["expire"] = torch.from_numpy(rng.random((T, B, W)) < 0.1).to(dev)
+    if consume:
+        kw["consume"] = torch.from_numpy(rng.random((T, B, S)) < 0.05).to(
+            dev)
+    args = (cells0, torch.from_numpy(cls).to(dev),
+            torch.from_numpy(hits).to(dev), torch.from_numpy(start).to(dev),
+            torch.from_numpy(valid).to(dev))
+    kw.update(lay=lay, ptab=tecs_arena._ptab(at, dev),
+              finals_sq=tecs_arena._finals(at, dev))
+    return args, kw, lay
+
+
+@pytest.mark.parametrize("query,mwe", ARENA_QUERIES)
+@pytest.mark.parametrize("consume,n_seg", [(False, 1), (True, 1),
+                                           (False, 2)])
+def test_arena_kernel_matches_plain_version(dev, query, mwe, consume,
+                                            n_seg):
+    B, T = 13, 96
+    args, kw, lay = arena_operands(dev, query, mwe, consume, B, T,
+                                   seed=len(query) + 3 * consume + n_seg)
+    launches = arena_update.KERNEL.launches
+    got = ops.arena_block_update(*args, n_seg=n_seg, impl="fused", **kw)
+    torch.cuda.synchronize()
+    assert arena_update.KERNEL.launches == launches + 1
+    want = ops.arena_block_update(*args, n_seg=n_seg, impl="ref", **kw)
+    for g, w in zip(got[0], want[0]):
+        assert torch.equal(g, w)
+    for g, w in zip(got[1:], want[1:]):
+        assert g.dtype == torch.int32 and torch.equal(g, w)
+    assert int(got[1].sum()) > 0
+
+
+def test_arena_streaming_engine_on_card(dev):
+    """Chunks through both kernels equal the plain route and the CPU run,
+    node store included; the library is loaded once; enumerations equal
+    the CPU engine's."""
+    query = "SELECT * FROM S WHERE A1 ; A2+ ; A3 WITHIN 30 events"
+    B, T = 8, 32
+    streams = [random_stream(StreamSpec(["A1", "A2", "A3", "B1"], seed=b),
+                             3 * T) for b in range(B)]
+    runs, states, sets = {}, {}, {}
+    for name, device, impl in (("kernel", None, None),
+                               ("plain", None, "ref"),
+                               ("cpu", "cpu", None)):
+        se = StreamingVectorEngine(VectorEngine(query, device=device,
+                                                impl=impl), T, B,
+                                   arena_capacity=1 << 12)
+        runs[name] = [se.feed([s[i * T:(i + 1) * T] for s in streams])
+                      for i in range(3)]
+        states[name] = se.snapshot()["arrays"]
+        hits = [h for _, hs in runs[name] for h in hs]
+        sets[name] = {k: [(c.start, c.end, c.data) for c in v]
+                      for k, v in se.enumerate_hits(hits).items()}
+        if name == "kernel":
+            assert se.compile_count == 1
+    for name in ("plain", "cpu"):
+        for (ck, hk), (cp, hp) in zip(runs["kernel"], runs[name]):
+            np.testing.assert_array_equal(ck, cp)
+            assert hk == hp
+        assert states["kernel"].keys() == states[name].keys()
+        for k in states["kernel"]:
+            np.testing.assert_array_equal(states["kernel"][k],
+                                          states[name][k], err_msg=k)
+        assert sets["kernel"] == sets[name]
+
+
+def test_arena_router_raises_on_what_the_kernel_refuses(dev):
+    B, T, S = 2, 4, 40
+    pm = np.zeros((1, S, 1), bool)
+    pv = np.zeros((1, S, 1), bool)
+    pv[0, 2, 0] = True
+    finals = np.zeros((S, 1), bool)
+    finals[2] = True
+    cells = tuple(torch.full((B, 8, S), -1, dtype=torch.int32, device=dev)
+                  for _ in range(4))
+    cls = torch.zeros((T, B), dtype=torch.int32, device=dev)
+    hits = torch.zeros((T, B, 1), dtype=torch.int32, device=dev)
+    ptab = torch.zeros((1, S, 1, 3), dtype=torch.int32, device=dev)
+    fin = torch.from_numpy(finals.astype(np.int32)).to(dev)
+    lay = kref.arena_block_layout(8, S, 1, 1, 3, 64, (1,), finals, pm, pv)
+    with pytest.raises(ValueError, match="det states"):
+        ops.arena_block_update(cells, cls, hits, 0, T, lay=lay, ptab=ptab,
+                               finals_sq=fin)
+    S = 4
+    lay = kref.arena_block_layout(8, S, 1, 1, 3, 2 ** 31 - 10, (1,),
+                                  finals[:S], pm[:, :S], pv[:, :S])
+    with pytest.raises(ValueError, match="overflow int32"):
+        ops.arena_block_update(tuple(c[:, :, :S].contiguous()
+                                     for c in cells), cls, hits, 0, T,
+                               lay=lay, ptab=ptab[:, :S].contiguous(),
+                               finals_sq=fin[:S])

@@ -170,13 +170,10 @@ def test_reset_rewinds_and_keeps_buffers():
 
 def test_unported_paths_raise():
     te = TVector(CASES["count"][0], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TStreaming(te, 8, 2, arena_capacity=64)
     ts = TStreaming(te, 8, 2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ts.restore(ts.snapshot(), migrate_packing=True)
     for call in (lambda: te.classify(None), lambda: te.scan(None, None),
-                 lambda: te.run_enumerate([]), lambda: te.arena_tables(),
                  lambda: te.partitioned_streaming(("name",), 8, 2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
