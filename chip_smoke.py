@@ -5,9 +5,9 @@
 
 Run from the root of a checkout, on a machine with a CUDA device, nvcc and
 PyTorch built for CUDA.  It builds the port's kernel library from
-``src/repro_torch/kernels/csrc/`` (``fused_scan.cu`` and
-``arena_update.cu``, one nvcc each, started together), then runs these
-phases, each printing one JSON line:
+``src/repro_torch/kernels/csrc/`` (``fused_scan.cu``, ``arena_update.cu``,
+``bitvector.cu`` and ``cea_scan.cu``, one nvcc each, started together),
+then runs these phases, each printing one JSON line:
 
 0. card: ``nvidia-smi`` name and power limit, versions, library build time;
 1. main path at full width: ``A1 ; A2 ; A3 WITHIN 3200 events`` (ring
@@ -33,7 +33,20 @@ phases, each printing one JSON line:
    16 lanes; store ≡ plain, lane 0 ≡ host ``Engine``;
 7. the other shapes through ``ops.arena_block_update``: LAST with native
    enumeration, K5 (32-state build, K=18), ``n_seg=2``, ragged offsets
-   and valid counts with dead lanes: kernel ≡ plain.
+   and valid counts with dead lanes: kernel ≡ plain;
+8. the unfused path at phase 1's configuration: ``StreamingVectorEngine(
+   impl="unfused")`` (bitvector + cea_scan_multi) and ``classify`` +
+   ``scan`` (bitvector + cea_scan) ≡ phase 1's fused run and the closed
+   form; each kernel's time, bound and plain time;
+9. the packed ``MultiQueryEngine``: four standing queries of the Fig. 8
+   shape (Ŝ = 28, k = 9, 512 joint classes, ring 3208, a 368 MB ring in
+   global memory), 1024 lanes, 8 chunks through ``impl="fused"``,
+   ``"unfused"`` and the plain version; each query ≡ its closed form on 8
+   lanes; then the packed tECS arena at a window of 300 events, 16 lanes:
+   store ≡ plain, lane 0 ≡ the host ``Engine`` per query;
+10. edge shapes of the three new kernels against their plain versions
+    (state buckets, rings of exactly ε+1, start 0 and a chunked carry,
+    NaN attributes) and the routers' refusals.
 
 Then the kernels line and, last, ``{"ok": true, "device": {...}}``.  Every
 comparison of kernel and plain version is exact (tolerance 0): counts are
@@ -72,6 +85,11 @@ LAST_QUERY = "SELECT LAST * FROM S WHERE A1 ; A2 WITHIN 63 events"
 D5_CONSUME = ("SELECT * FROM S WHERE A1 ; (A2 OR A2') ; A3 ; (A4 OR A4') "
               "; A5 WITHIN 4000 events CONSUME BY ANY")
 K5_QUERY = "SELECT * FROM S WHERE A1 ; A2+ ; A3 ; A4+ ; A5 WITHIN 100 events"
+# the packed engine's four standing queries (phase 9): the paper's Fig. 8
+# shape over A1-A3 and B1-B6
+PACKED_QUERY = "SELECT * FROM S WHERE {} WITHIN {} events"
+PACKED_SEQS = ("A1 ; A2 ; A3", "B1 ; B2 ; B3", "B4 ; B5 ; B6",
+               "A1 ; B5 ; A3")
 
 
 def check(cond: bool, what: str) -> None:
@@ -176,7 +194,7 @@ def phase_card() -> str:
     return smi
 
 
-def phase_main(seed: int, B: int = 1024, n_chunks: int = 8) -> dict:
+def phase_main(seed: int, B: int = 1024, n_chunks: int = 8):
     """Full width: B=1024, ring 3208, S=7, 8 chunks of 256."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.fused_scan import KERNEL
@@ -290,7 +308,10 @@ def phase_main(seed: int, B: int = 1024, n_chunks: int = 8) -> dict:
               "bound_bytes": nbytes, "bound_flops": flops,
               "max_abs_err": err}
     emit(result)
-    return result
+    # what phase 8 holds the unfused path against
+    run = {"chunks": chunks, "counts": counts_k, "hits": hits_k,
+           "ring": kern.state}
+    return result, run
 
 
 def phase_host(seed: int) -> None:
@@ -768,6 +789,480 @@ def phase_enum_shapes(seed: int) -> None:
         del got, want
 
 
+# ---------------------------------------------------------------------------
+# the unfused pipeline and the packed multi-query engine: the bit-vector,
+# cea_scan and cea_scan_multi kernels
+# ---------------------------------------------------------------------------
+
+
+def reset_launches() -> dict:
+    """Every kernel wrapper's launch counter, set to 0."""
+    from repro_torch.kernels import arena_update, bitvector, cea_scan
+    from repro_torch.kernels import fused_scan
+    counters = {"fused_scan": fused_scan.KERNEL,
+                "arena_update": arena_update.KERNEL,
+                "bitvector": bitvector.KERNEL,
+                "cea_scan": cea_scan.SINGLE,
+                "cea_scan_multi": cea_scan.MULTI}
+    for k in counters.values():
+        k.launches = 0
+    return counters
+
+
+def read_launches(counters: dict) -> dict:
+    return {name: k.launches for name, k in counters.items()}
+
+
+def scan_bound(m_all, finals_q, cls, B, W, S, NQ):
+    """Least time of one scan chunk: the sparse f32 arithmetic this run's
+    classes need (the non-zeros of M_all[class] and of the finals, per ring
+    slot), or the bytes moved once (ring in and out, class ids, matches,
+    tables), whichever is larger.  Returns (ms, "bytes"|"operations",
+    bytes, flops)."""
+    T = cls.shape[0]
+    nnz_m = (m_all != 0).sum(dim=(1, 2))
+    flops = 2 * W * (int(nnz_m[cls.long()].sum())
+                     + T * B * int((finals_q != 0).sum()))
+    nbytes = 4 * (2 * B * W * S + T * B + T * B * NQ + m_all.numel()
+                  + finals_q.numel() + S)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOP_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def phase_unfused(seed: int, main_run: dict, B: int = 1024,
+                  n_chunks: int = 8) -> dict:
+    """Phase 1's configuration through the unfused path: the streaming
+    engine with impl="unfused" (bitvector + cea_scan_multi, Q=1) and
+    VectorEngine.classify + scan (bitvector + cea_scan)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.vector import StreamingVectorEngine, VectorEngine
+    T, eps = 256, 3200
+    ve = VectorEngine(MAIN_QUERY.format(eps))
+    t = ve.tables
+    chunks = main_run["chunks"]
+    check(len(chunks) == n_chunks and tuple(chunks[0].shape[:2]) == (T, B),
+          "phase 8 feeds phase 1's chunks")
+    un = StreamingVectorEngine(ve, T, B, impl="unfused")
+
+    torch.cuda.synchronize()
+    counters = reset_launches()
+    feed_s, counts_u, hits_u = [], [], []
+    for attrs in chunks:
+        t0 = time.perf_counter()
+        c, h = un.feed_attrs(attrs)
+        feed_s.append(time.perf_counter() - t0)
+        counts_u.append(c)
+        hits_u += h
+    feed_launches = read_launches(counters)
+    check(feed_launches == {"fused_scan": 0, "arena_update": 0,
+                            "bitvector": n_chunks, "cea_scan": 0,
+                            "cea_scan_multi": n_chunks},
+          f"phase 8 unfused feed launched {feed_launches}")
+    check(un.compile_count == 1, f"compile_count {un.compile_count}")
+    counts_u = np.concatenate(counts_u)
+    check(same(counts_u, main_run["counts"]) and hits_u == main_run["hits"],
+          "phase 8: unfused counts and hits ≡ phase 1's fused (≡ plain)")
+    check(same(un.state, main_run["ring"]), "phase 8: unfused ring ≡ fused")
+    codes = torch.cat(chunks)[:, :8, 0].cpu().numpy().astype(np.int64)
+    check(same(seq3_counts(codes, eps), counts_u[:, :8]),
+          "phase 8: counts equal the closed-form count on 8 lanes")
+
+    # the unfused feed against the fused feed on the host clock, in turns
+    # (both engines restart from position 0)
+    fu = StreamingVectorEngine(VectorEngine(MAIN_QUERY.format(eps)), T, B)
+    un.reset()
+    turns = {"fused": [], "unfused": []}
+    for attrs in chunks:
+        for name, se in (("fused", fu), ("unfused", un)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            se.feed_attrs(attrs)
+            turns[name].append(time.perf_counter() - t0)
+    check(same(fu.state, un.state), "phase 8: fused ≡ unfused after the "
+          "feeds in turns")
+    del fu
+
+    # classify + scan: the single-query scan kernel
+    counters = reset_launches()
+    state, counts_s = ve.init_state(B), []
+    for i, attrs in enumerate(chunks):
+        m, state = ve.scan(ve.classify(attrs), state, start_pos=i * T)
+        counts_s.append(m.cpu().numpy().astype(np.int64))
+    scan_launches = read_launches(counters)
+    check(scan_launches == {"fused_scan": 0, "arena_update": 0,
+                            "bitvector": n_chunks, "cea_scan": n_chunks,
+                            "cea_scan_multi": 0},
+          f"phase 8 classify + scan launched {scan_launches}")
+    check(same(np.concatenate(counts_s), main_run["counts"]) and
+          same(state, main_run["ring"]),
+          "phase 8: classify + scan ≡ phase 1's fused run")
+    del state
+
+    # each kernel alone on chunk 0, from phase 1's final ring, against its
+    # plain version on the same inputs
+    attrs = chunks[0]
+    flat = attrs.reshape(T * B, attrs.shape[2])
+    specs = ve.encoder.specs
+    bits_k, bits_p = ops.bitvector(flat, specs), ref.bitvector(flat, specs)
+    check(same(bits_k, bits_p), "phase 8: bitvector kernel ≡ plain")
+    ids = t.class_of[bits_k.long()].reshape(T, B)
+    start = n_chunks * T
+    res = {}
+    for name, kern, plain in (
+            ("cea_scan",
+             lambda c: ops.cea_scan(ids, t.m_all, t.finals, c, epsilon=eps,
+                                    start_pos=start, inplace=True),
+             lambda c: ref.cea_scan(ids, t.m_all, t.finals, c, epsilon=eps,
+                                    start_pos=start)),
+            ("cea_scan_multi",
+             lambda c: ops.cea_scan_multi(
+                 ids, t.m_all, t.finals[None, :], c, init_mask=t.init_mask,
+                 epsilon=eps, start_pos=start, inplace=True),
+             lambda c: ref.cea_scan_multi(
+                 ids, t.m_all, t.finals[None, :], c, init_mask=t.init_mask,
+                 epsilon=eps, start_pos=start))):
+        got = kern(main_run["ring"].clone())
+        want = plain(main_run["ring"].clone())
+        check(same(got[0], want[0]) and same(got[1], want[1]),
+              f"phase 8: {name} kernel ≡ plain")
+        err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+        del got, want
+        st_k, st_p = main_run["ring"].clone(), main_run["ring"].clone()
+        bound = scan_bound(t.m_all, t.finals[None, :], ids, B, ve.ring,
+                           t.num_states, 1)
+        res[name] = {"ms": cuda_ms(lambda: kern(st_k), reps=5),
+                     "plain_ms": cuda_ms(lambda: plain(st_p), reps=2),
+                     "bound_ms": bound[0], "bound_by": bound[1],
+                     "bound_bytes": bound[2], "bound_flops": bound[3],
+                     "max_abs_err": err}
+        del st_k, st_p
+    bv_bytes = 4 * (flat.numel() + T * B)
+    bv_ops = len(specs) * T * B
+    t_bytes, t_ops = bv_bytes / PEAK_BYTES_PER_S, bv_ops / PEAK_F32_FLOP_PER_S
+    res["bitvector"] = {
+        "ms": cuda_ms(lambda: ops.bitvector(flat, specs), reps=20),
+        "plain_ms": cuda_ms(lambda: ref.bitvector(flat, specs), reps=5),
+        "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_bytes": bv_bytes, "max_abs_err": max_abs_err(bits_k, bits_p)}
+    feed_med = float(np.median(feed_s))
+    result = {"phase": 8, "query": MAIN_QUERY.format(eps), "B": B, "T": T,
+              "chunks": n_chunks, "W": ve.ring, "S": t.num_states,
+              "feed_launches": feed_launches,
+              "classify_scan_launches": scan_launches,
+              "compile_count": un.compile_count,
+              "matches": int(counts_u.sum()), "hits": len(hits_u),
+              "unfused_feed_ms_per_chunk_median": 1e3 * feed_med,
+              "unfused_feed_ms_per_chunk": [1e3 * x for x in feed_s],
+              "unfused_events_per_s": B * T / feed_med,
+              "feed_ms_in_turns_median": {
+                  k: 1e3 * float(np.median(v)) for k, v in turns.items()},
+              "kernels": res}
+    emit(result)
+    return result
+
+
+def packed_codes(types_tb: np.ndarray, names, query_types) -> np.ndarray:
+    """A query's own 0/1/2 codes of a (T, B) type-index array, -1 for the
+    types it does not read."""
+    lut = np.array([query_types.index(n) if n in query_types else -1
+                    for n in names], np.int64)
+    return lut[types_tb]
+
+
+def phase_packed(seed: int, B: int = 1024, n_chunks: int = 8) -> dict:
+    """Four standing queries of the Fig. 8 shape packed into one engine
+    (Ŝ = 28, k = 9, C = 512, ring 3208): fused, unfused and plain."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.vector import MultiQueryEngine, StreamingVectorEngine
+    T, eps = 256, 3200
+    queries = [PACKED_QUERY.format(q, eps) for q in PACKED_SEQS]
+    types = ["A1", "A2", "A3"] + [f"B{i}" for i in range(1, 7)]
+    mq = MultiQueryEngine(queries)
+    pk, t = mq.packing, mq.tables
+    check(mq.packed_states == 28 and pk.num_bits == 9 and
+          pk.num_classes == 512 and mq.ring == 3208,
+          "packed geometry is Ŝ=28, k=9, C=512, ring 3208")
+    rng = np.random.default_rng(seed + 9)
+    draws = rng.integers(0, len(types), (n_chunks * T, B))
+    codes = np.array([mq.encoder.vocab["type"][x] for x in types],
+                     np.float32)
+    attrs_all = torch.from_numpy(codes[draws][:, :, None]).to(mq.device)
+    chunks = [attrs_all[i * T:(i + 1) * T] for i in range(n_chunks)]
+    engines = {impl: StreamingVectorEngine(
+        mq if impl == "fused" else MultiQueryEngine(queries, impl=impl),
+        T, B) for impl in ("fused", "unfused", "ref")}
+    runs = {}
+    for impl, se in engines.items():
+        torch.cuda.synchronize()
+        counters = reset_launches()
+        feed_s, counts, hits = [], [], []
+        for attrs in chunks:
+            t0 = time.perf_counter()
+            c, h = se.feed_attrs(attrs)
+            feed_s.append(time.perf_counter() - t0)
+            counts.append(c)
+            hits += h
+        runs[impl] = {"counts": np.concatenate(counts), "hits": hits,
+                      "feed_s": feed_s, "launches": read_launches(counters)}
+    want = {"fused": dict(fused_scan=n_chunks),
+            "unfused": dict(bitvector=n_chunks, cea_scan_multi=n_chunks),
+            "ref": {}}
+    for impl, run in runs.items():
+        expect = {k: want[impl].get(k, 0) for k in run["launches"]}
+        check(run["launches"] == expect,
+              f"phase 9 {impl} launched {run['launches']}")
+    for impl in ("fused", "unfused"):
+        check(engines[impl].compile_count == 1,
+              f"phase 9 {impl}: compile_count "
+              f"{engines[impl].compile_count}")
+        check(same(runs[impl]["counts"], runs["ref"]["counts"]) and
+              runs[impl]["hits"] == runs["ref"]["hits"],
+              f"phase 9: {impl} counts and hits ≡ plain")
+        check(same(engines[impl].state, engines["ref"].state),
+              f"phase 9: {impl} ring ≡ plain")
+    counts = runs["fused"]["counts"]
+    check(counts.shape == (n_chunks * T, B, 4),
+          "phase 9 counts are (T, B, 4)")
+    check(counts.max() < EXACT_LIMIT and
+          float(engines["fused"].state.max()) < EXACT_LIMIT,
+          "phase 9: counts and ring stay below 2^24")
+    for q, seq in enumerate(PACKED_SEQS):
+        own = packed_codes(draws[:, :8], types, seq.split(" ; "))
+        check(same(seq3_counts(own, eps), counts[:, :8, q]),
+              f"phase 9: query {seq} equals its closed form on 8 lanes")
+
+    # classify + scan ≡ pipeline, from a fresh state, on chunk 0
+    ids = mq.classify(chunks[0])
+    m_s, st_s = mq.scan(ids, mq.init_state(B))
+    m_p, st_p = mq.pipeline(chunks[0], mq.init_state(B))
+    check(same(m_s, m_p) and same(st_s, st_p),
+          "phase 9: classify + scan ≡ pipeline")
+    del st_s, st_p
+
+    # the kernels alone on chunk 0 from the final ring
+    ring = engines["fused"].state
+    start = n_chunks * T
+    kw = dict(init_mask=t.init_mask, epsilon=eps, start_pos=start)
+    got = ops.cea_scan_multi(ids, t.m_all, t.finals, ring.clone(), **kw)
+    want_ = ref.cea_scan_multi(ids, t.m_all, t.finals, ring.clone(), **kw)
+    check(same(got[0], want_[0]) and same(got[1], want_[1]),
+          "phase 9: cea_scan_multi kernel ≡ plain")
+    err = max(max_abs_err(got[0], want_[0]), max_abs_err(got[1], want_[1]))
+    del got, want_
+    st_k, st_p = ring.clone(), ring.clone()
+    ms = cuda_ms(lambda: ops.cea_scan_multi(ids, t.m_all, t.finals, st_k,
+                                            inplace=True, **kw), reps=3)
+    plain_ms = cuda_ms(lambda: ref.cea_scan_multi(ids, t.m_all, t.finals,
+                                                  st_p, **kw), reps=1)
+    st_f = ring.clone()
+    fused_ms = cuda_ms(lambda: ops.cer_pipeline(
+        chunks[0], mq.encoder.specs, t.class_of, t.class_ind, t.m_all,
+        t.finals, st_f, init_mask=t.init_mask, window=mq.window,
+        start_pos=start, inplace=True), reps=3)
+    # the same scan on half the ring (1608 slots, 186 KB a lane), which
+    # fits shared memory: what the global-memory ring costs
+    half = 1608
+    st_h = ring[:, :half].contiguous()
+    half_ms = cuda_ms(lambda: ops.cea_scan_multi(
+        ids, t.m_all, t.finals, st_h, init_mask=t.init_mask,
+        epsilon=half - 1, start_pos=start, inplace=True), reps=3)
+    del st_k, st_p, st_f, st_h
+    bound = scan_bound(t.m_all, t.finals, ids, B, mq.ring, 28, 4)
+    med = {impl: float(np.median(run["feed_s"])) for impl, run in
+           runs.items()}
+    result = {"phase": 9, "queries": queries, "B": B, "T": T,
+              "chunks": n_chunks, "W": mq.ring, "S": mq.packed_states,
+              "k": pk.num_bits, "C": pk.num_classes,
+              "ring_MB": B * mq.ring * 28 * 4 / 1e6,
+              "launches": {impl: run["launches"] for impl, run in
+                           runs.items()},
+              "compile_count": engines["fused"].compile_count,
+              "matches_per_query": [int(x) for x in
+                                    counts.sum(axis=(0, 1))],
+              "max_count": int(counts.max()),
+              "feed_ms_per_chunk_median": {k: 1e3 * v
+                                           for k, v in med.items()},
+              "events_per_s": {k: B * T / v for k, v in med.items()},
+              "cea_scan_multi_ms": ms, "cea_scan_multi_plain_ms": plain_ms,
+              "fused_scan_ms": fused_ms,
+              "cea_scan_multi_ms_half_ring_in_smem": half_ms,
+              "bound_ms": bound[0], "bound_by": bound[1],
+              "bound_bytes": bound[2], "bound_flops": bound[3],
+              "max_abs_err": err,
+              "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9}
+    del engines, runs, attrs_all, chunks, ring
+    result.update(packed_arena(seed))
+    emit(result)
+    return result
+
+
+def packed_arena(seed: int, B: int = 16, n_chunks: int = 2) -> dict:
+    """Correctness of the packed tECS arena: the four queries at a window
+    of 300 events, 16 lanes; store ≡ plain, lane 0 ≡ the host Engine."""
+    from repro_torch.core.events import Event
+    from repro_torch.vector import MultiQueryEngine, StreamingVectorEngine
+    T, eps, cap = 256, 300, 1 << 18
+    queries = [PACKED_QUERY.format(q, eps) for q in PACKED_SEQS]
+    types = ["A1", "A2", "A3"] + [f"B{i}" for i in range(1, 7)] + ["C1"]
+    rng = np.random.default_rng(seed + 10)
+    draws = rng.integers(0, 9, (n_chunks * T, B))
+    # lane 0 draws the queries' types rarely, so the host Engine can
+    # enumerate every one of its matches
+    draws[:, 0] = rng.choice(len(types), n_chunks * T,
+                             p=[0.02] * 9 + [0.82])
+    mq = MultiQueryEngine(queries)
+    codes = np.array([mq.encoder.vocab["type"].get(x, -1.0) for x in types],
+                     np.float32)
+    attrs_all = torch.from_numpy(codes[draws][:, :, None]).to(mq.device)
+    kern = StreamingVectorEngine(mq, T, B, arena_capacity=cap)
+    plain = StreamingVectorEngine(MultiQueryEngine(queries, impl="ref"), T,
+                                  B, arena_capacity=cap)
+    counts, hits = [], []
+    for i in range(n_chunks):
+        attrs = attrs_all[i * T:(i + 1) * T]
+        ck, hk = kern.feed_attrs(attrs)
+        cp, hp = plain.feed_attrs(attrs)
+        check(same(ck, cp) and hk == hp, "packed arena: counts kernel ≡ "
+              "plain")
+        counts.append(ck)
+        hits += hk
+    check_engines_equal(kern, plain, "packed arena")
+    del plain
+    check(not bool(kern.state["arena"]["ovf"].any()),
+          "packed arena: ovf stays clear")
+    counts = np.concatenate(counts)
+    lane0 = [Event(types[i], {}, position=p, timestamp=float(p))
+             for p, i in enumerate(draws[:, 0])]
+    n_ces = []
+    for q, query in enumerate(queries):
+        q_hits = [(p, b) for p, b in hits if b == 0 and counts[p, 0, q]]
+        got = {p: ceset(v) for (p, _), v in
+               kern.enumerate_hits(q_hits, query=q).items()}
+        want = host_sets(query, lane0)
+        check(got == want, f"packed arena query {q}: lane 0 enumerates "
+              f"what the host Engine finds "
+              f"({sum(map(len, got.values()))} vs "
+              f"{sum(map(len, want.values()))} complex events)")
+        n_ces.append(sum(map(len, want.values())))
+    return {"arena_B": B, "arena_window": eps, "arena_hits": len(hits),
+            "arena_matches": int(counts.sum()),
+            "arena_lane0_complex_events": n_ces,
+            "arena_max_ptr": int(kern.state["arena"]["ptr"].max())}
+
+
+def phase_edges(seed: int, dev="cuda") -> None:
+    """Edge shapes of the three kernels against their plain versions, and
+    the routers' refusals."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import window as wkern
+    rng = np.random.default_rng(seed + 11)
+    n = 0
+    for N, A, k in ((1, 1, 6), (7, 3, 6), (300, 8, 14)):
+        attrs = rng.normal(size=(N, A)).astype(np.float32)
+        attrs[rng.random((N, A)) < 0.2] = np.nan
+        attrs[rng.random((N, A)) < 0.2] = 0.0
+        specs = [(int(rng.integers(0, A)), i % 6,
+                  float(rng.choice([0.0, rng.normal()]))) for i in range(k)]
+        x = torch.from_numpy(attrs).to(dev)
+        check(same(ops.bitvector(x, specs), ref.bitvector(x, specs)),
+              f"phase 10: bitvector kernel ≡ plain at N={N} A={A} k={k}")
+        n += 1
+    # S in each bucket; rings of exactly ε+1 and padded; start 0 and a
+    # chunked carry; two successors per row, entries of 2 where they meet
+    for S, NQ, eps, W in ((5, 1, 6, 7), (5, 2, 6, 16), (12, 3, 9, 10),
+                          (12, 8, 9, 24), (28, 4, 7, 8), (28, 1, 7, 13)):
+        M = np.zeros((6, S, S), np.float32)
+        for s in range(1, S):
+            for c in range(6):
+                for _ in range(2):
+                    tgt = rng.integers(0, S)
+                    if tgt:
+                        M[c, s, tgt] += 1
+        finals = (rng.random((NQ, S)) < 0.4).astype(np.float32)
+        finals[:, 0] = 0.0
+        init = np.zeros(S, np.float32)
+        init[rng.choice(np.arange(1, S), NQ, replace=False)] = 1.0
+        B, T = 37, 96
+        ids = torch.from_numpy(rng.integers(0, 6, (T, B)).astype(
+            np.int32)).to(dev)
+        Mt, ft, it = (torch.from_numpy(a).to(dev) for a in (M, finals, init))
+        c0 = torch.zeros((B, W, S), device=dev)
+        for name, kern, plain in (
+                ("cea_scan_multi",
+                 lambda i, c, s: ops.cea_scan_multi(
+                     i, Mt, ft, c, init_mask=it, epsilon=eps, start_pos=s),
+                 lambda i, c, s: ref.cea_scan_multi(
+                     i, Mt, ft, c, init_mask=it, epsilon=eps, start_pos=s)),
+                ("cea_scan",
+                 lambda i, c, s: ops.cea_scan(i, Mt, ft[0], c, epsilon=eps,
+                                              start_pos=s),
+                 lambda i, c, s: ref.cea_scan(i, Mt, ft[0], c, epsilon=eps,
+                                              start_pos=s))):
+            full_k = kern(ids, c0, 0)
+            full_p = plain(ids, c0, 0)
+            m1, c1 = kern(ids[:40], c0, 0)
+            m2, c2 = kern(ids[40:], c1, 40)
+            check(same(full_k[0], full_p[0]) and same(full_k[1], full_p[1]),
+                  f"phase 10: {name} kernel ≡ plain at S={S} NQ={NQ} W={W}")
+            check(same(torch.cat([m1, m2]), full_k[0]) and
+                  same(c2, full_k[1]),
+                  f"phase 10: {name} chunked carry at S={S} W={W}")
+            check(float(full_k[0].max()) < EXACT_LIMIT,
+                  "phase 10: counts stay below 2^24")
+            n += 1
+
+    # the routers refuse before any launch
+    counters = reset_launches()
+    S, NQ = 6, 2
+    ids = torch.zeros((4, 2), dtype=torch.int32, device=dev)
+
+    def scan(S, NQ, W, eps):
+        return ops.cea_scan_multi(
+            ids, torch.zeros((3, S, S), device=dev),
+            torch.zeros((NQ, S), device=dev),
+            torch.zeros((2, W, S), device=dev),
+            init_mask=torch.zeros(S, device=dev), epsilon=eps)
+    refusals = [("S > 32", lambda: scan(33, 1, 8, 3)),
+                ("Q > 8", lambda: scan(12, 9, 8, 3)),
+                ("W < eps+1", lambda: scan(12, 2, 3, 3)),
+                ("k > 31", lambda: ops.bitvector(
+                    torch.zeros((3, 1), device=dev), [(0, 0, 0.0)] * 32))]
+    pipe_args = (torch.zeros((4, 2, 1), device=dev), ((0, 0, 0.0),),
+                 torch.zeros(2, dtype=torch.int32, device=dev), None,
+                 torch.zeros((1, S, S), device=dev),
+                 torch.zeros((NQ, S), device=dev))
+    c0 = torch.zeros((2, 8, S), device=dev)
+    init = torch.zeros(S, device=dev)
+    for what, kw in (
+            ("per-lane start_pos", dict(start_pos=torch.zeros(
+                2, dtype=torch.int32, device=dev))),
+            ("valid_counts", dict(valid_counts=torch.full(
+                (2,), 4, device=dev))),
+            ("LAST", dict(latest_q=torch.ones(NQ, device=dev))),
+            ("CONSUME", dict(consume_sq=torch.ones((NQ, S), device=dev)))):
+        refusals.append((f"unfused with {what}", lambda kw=kw: (
+            ops.cer_pipeline(*pipe_args, c0, init_mask=init, epsilon=5,
+                             impl="unfused", **kw))))
+    window = wkern.DeviceWindow.time(5.0, max_window_events=8)
+    refusals.append(("unfused with a time window", lambda: ops.cer_pipeline(
+        *pipe_args, wkern.init_state(window, 2, S, dev), init_mask=init,
+        window=window, event_ts=torch.zeros((4, 2), device=dev),
+        impl="unfused")))
+    for what, fn in refusals:
+        try:
+            fn()
+        except ValueError:
+            continue
+        check(False, f"phase 10: the router accepted {what}")
+    check(all(v == 0 for v in read_launches(counters).values()),
+          "phase 10: refused calls launched nothing")
+    torch.cuda.synchronize()
+    emit({"phase": 10, "kernel_cases": n, "refusals": len(refusals),
+          "max_abs_err": 0.0})
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -782,13 +1277,18 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     phase_card()
-    main_res = phase_main(args.seed)
+    main_res, main_run = phase_main(args.seed)
     phase_host(args.seed)
     phase_time(args.seed)
     phase_last_lanes(args.seed)
     enum_res = phase_enum(args.seed)
     phase_enum_time(args.seed)
     phase_enum_shapes(args.seed)
+    unf_res = phase_unfused(args.seed, main_run)
+    del main_run
+    packed_res = phase_packed(args.seed)
+    phase_edges(args.seed)
+    unf = unf_res["kernels"]
     emit({"kernels": [{
         "name": "fused_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_scan.cu",
@@ -810,6 +1310,36 @@ def main() -> None:
         "plain_ms": enum_res["plain_ms_per_chunk"],
         "bound_ms": enum_res["bound_ms"],
         "bound_by": enum_res["bound_by"],
+        "library_ms": None}, {
+        "name": "bitvector", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bitvector.cu",
+        "replaces": "src/repro/kernels/bitvector.py:45",
+        "launches": unf_res["feed_launches"]["bitvector"],
+        "max_abs_err": unf["bitvector"]["max_abs_err"],
+        "ms": unf["bitvector"]["ms"],
+        "plain_ms": unf["bitvector"]["plain_ms"],
+        "bound_ms": unf["bitvector"]["bound_ms"],
+        "bound_by": unf["bitvector"]["bound_by"],
+        "library_ms": None}, {
+        "name": "cea_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/cea_scan.cu",
+        "replaces": "src/repro/kernels/cea_scan.py:195",
+        "launches": unf_res["classify_scan_launches"]["cea_scan"],
+        "max_abs_err": unf["cea_scan"]["max_abs_err"],
+        "ms": unf["cea_scan"]["ms"],
+        "plain_ms": unf["cea_scan"]["plain_ms"],
+        "bound_ms": unf["cea_scan"]["bound_ms"],
+        "bound_by": unf["cea_scan"]["bound_by"],
+        "library_ms": None}, {
+        "name": "cea_scan_multi", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/cea_scan.cu",
+        "replaces": "src/repro/kernels/cea_scan.py:283",
+        "launches": packed_res["launches"]["unfused"]["cea_scan_multi"],
+        "max_abs_err": packed_res["max_abs_err"],
+        "ms": packed_res["cea_scan_multi_ms"],
+        "plain_ms": packed_res["cea_scan_multi_plain_ms"],
+        "bound_ms": packed_res["bound_ms"],
+        "bound_by": packed_res["bound_by"],
         "library_ms": None}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,9 @@
 Each CUDA source in ``csrc/`` is compiled by its own ``nvcc`` process (all
 started together) for ``sm_90a``, and the objects are linked into one shared
 library in ``build/repro_torch/`` at the repository root, named by a hash of
-the sources and flags.  The library is built and loaded at first use, once
-per process, and bound through ``ctypes``; nothing happens at import.
+the sources, the header they share and the flags.  The library is built and
+loaded at first use, once per process, and bound through ``ctypes``; nothing
+happens at import.
 """
 from __future__ import annotations
 
@@ -18,7 +19,10 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "fused_scan.cu", CSRC / "arena_update.cu")
+SOURCES = (CSRC / "fused_scan.cu", CSRC / "arena_update.cu",
+           CSRC / "bitvector.cu", CSRC / "cea_scan.cu")
+#: headers the sources include: part of the library's hash
+HEADERS = (CSRC / "common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -56,7 +60,7 @@ class KernelLibrary:
             return self._lib
         t0 = time.perf_counter()
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for src in SOURCES:
+        for src in SOURCES + HEADERS:
             h.update(src.name.encode() + src.read_bytes())
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         lib_path = BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"

@@ -34,6 +34,8 @@
 #include <climits>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kMaxBits = 14;    // predicates per query (2^14 class_of rows)
@@ -69,23 +71,6 @@ struct Args {
   int timed;
   int use_smem;
 };
-
-__device__ __forceinline__ bool compare(int op, float v, float thr) {
-  switch (op) {
-    case 0: return v == thr;
-    case 1: return v != thr;
-    case 2: return v < thr;
-    case 3: return v <= thr;
-    case 4: return v > thr;
-    default: return v >= thr;
-  }
-}
-
-// Python's sign rule: the result lies in [0, W) for negative x too.
-__device__ __forceinline__ int pymod(long long x, int W) {
-  long long r = x % W;
-  return static_cast<int>(r < 0 ? r + W : r);
-}
 
 template <int MAXS>
 __global__ void __launch_bounds__(kMaxThreads)

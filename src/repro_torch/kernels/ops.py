@@ -1,15 +1,21 @@
 """Routers of the device kernels: the Hopper kernel or its plain version.
 
-:func:`arena_block_update` routes the block tECS builder the same way as
-:func:`cer_pipeline`, the one entry point of the device CER pipeline:
+Every router launches its hand-written kernel on CUDA tensors, or raises
+``ValueError`` for what the kernel does not take; there is no silent
+fallback.  On CPU tensors it runs the plain version
+(:mod:`repro_torch.kernels.ref`).  :func:`cer_pipeline` is the one entry
+point of the device CER pipeline:
 
-* ``impl="fused"`` on CUDA tensors launches the hand-written kernel
-  (:mod:`repro_torch.kernels.fused_scan`) or raises ``ValueError`` for
-  shapes it does not take; there is no silent fallback.  On CPU tensors it
-  runs the plain version.
-* ``impl="ref"`` runs the plain version (:mod:`repro_torch.kernels.ref`) on
-  whatever device the tensors lie on.
-* ``impl="unfused"`` (the three-kernel baseline) is not ported yet.
+* ``impl="fused"`` — one launch of the fused-scan kernel
+  (:mod:`repro_torch.kernels.fused_scan`).
+* ``impl="unfused"`` — the three-dispatch baseline: the bit-vector kernel
+  (:func:`bitvector`), the ``class_of[bits]`` gather as a torch indexing op,
+  and the packed scan kernel (:func:`cea_scan_multi`).  It takes count
+  windows, one scalar ``start_pos`` and ANY semantics; other calls run the
+  plain version on the CPU and raise ``ValueError`` on CUDA.
+* ``impl="ref"`` — the plain version on whatever device the tensors lie on.
+
+:func:`arena_block_update` routes the block tECS builder the same way.
 """
 from __future__ import annotations
 
@@ -18,8 +24,11 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from . import cea_scan as scan_kernels
 from . import ref
 from .arena_update import KERNEL as ARENA_KERNEL
+from .bitvector import KERNEL as BITVECTOR_KERNEL
+from .bitvector import check_specs
 from .fused_scan import KERNEL
 from .window import DeviceWindow
 
@@ -36,6 +45,122 @@ def class_indicator(class_of: np.ndarray, num_classes: int) -> torch.Tensor:
     ind = np.zeros((((max(V, 1) + 7) // 8) * 8, num_classes), np.float32)
     ind[np.arange(V), class_of] = 1.0
     return torch.from_numpy(ind)
+
+
+def _on_cuda(t: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; other devices raise."""
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{what} runs on CUDA or the CPU, got {t.device}")
+    return t.device.type == "cuda"
+
+
+def _scalar_start(start_pos, what: str) -> int:
+    """The scan kernels take one start position for every lane."""
+    if isinstance(start_pos, torch.Tensor):
+        if start_pos.ndim != 0:
+            raise ValueError(f"{what} takes one scalar start_pos for every "
+                             f"lane, got shape {tuple(start_pos.shape)}")
+        return int(start_pos.item())
+    if np.ndim(start_pos) != 0:
+        raise ValueError(f"{what} takes one scalar start_pos for every lane")
+    return int(start_pos)
+
+
+def bitvector(attrs: torch.Tensor,
+              specs: Sequence[Tuple[int, int, float]]) -> torch.Tensor:
+    """(N, A) f32 × predicate specs ``(column, op, threshold)`` → (N,) int32
+    packed predicate bits (bit i ⇔ predicate i holds).
+
+    CUDA tensors launch the bit-vector kernel
+    (:mod:`repro_torch.kernels.bitvector`); CPU tensors run the plain
+    version.  Both refuse more than 31 predicates (``ValueError``)."""
+    check_specs(specs, attrs)
+    if not _on_cuda(attrs, "bitvector"):
+        return ref.bitvector(attrs, specs)
+    return BITVECTOR_KERNEL(attrs.contiguous(), specs)
+
+
+def cea_scan(class_ids: torch.Tensor, m_all: torch.Tensor,
+             finals: torch.Tensor, c0: torch.Tensor, *, epsilon: int,
+             start_pos: Union[int, torch.Tensor] = 0, init_state: int = 1,
+             inplace: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-query windowed scan over precomputed classes.
+
+    class_ids (T, B) int32 | m_all (C, S, S) f32 | finals (S,) | c0 (B, W, S)
+    with W ≥ ε+1 → (matches (T, B) f32, c_final (B, W, S) f32).  A fresh
+    run starts at ``init_state`` every step; ``start_pos`` is one scalar
+    for every lane.  Any ring W ≥ ε+1 gives the same matches.  CUDA tensors
+    launch the scan kernel (:data:`repro_torch.kernels.cea_scan.SINGLE`);
+    CPU tensors run the plain version.  ``inplace=True`` updates ``c0``.
+    """
+    start = _scalar_start(start_pos, "cea_scan")
+    if not _on_cuda(class_ids, "cea_scan"):
+        matches, c_fin = ref.cea_scan(class_ids, m_all, finals, c0,
+                                      epsilon=epsilon, start_pos=start,
+                                      init_state=init_state)
+        return matches, _store(c0, c_fin, inplace)
+    c = c0 if inplace else c0.clone()
+    matches = scan_kernels.SINGLE(class_ids, m_all, finals, c,
+                                  epsilon=epsilon, start=start,
+                                  init_state=init_state)
+    return matches, c
+
+
+def cea_scan_multi(class_ids: torch.Tensor, m_all: torch.Tensor,
+                   finals_q: torch.Tensor, c0: torch.Tensor, *,
+                   init_mask: torch.Tensor, epsilon: int,
+                   start_pos: Union[int, torch.Tensor] = 0,
+                   inplace: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Packed multi-query windowed scan over precomputed classes.
+
+    class_ids (T, B) int32 | m_all (C, S, S) f32 | finals_q (Q, S) |
+    init_mask (S,) multi-hot seed | c0 (B, W, S) with W ≥ ε+1 → (matches
+    (T, B, Q) f32, c_final (B, W, S) f32).  Count windows, ANY semantics,
+    one scalar ``start_pos`` for every lane.  CUDA tensors launch the scan
+    kernel (:data:`repro_torch.kernels.cea_scan.MULTI`); CPU tensors run
+    the plain version.  ``inplace=True`` updates ``c0``.
+    """
+    start = _scalar_start(start_pos, "cea_scan_multi")
+    if not _on_cuda(class_ids, "cea_scan_multi"):
+        matches, c_fin = ref.cea_scan_multi(class_ids, m_all, finals_q, c0,
+                                            init_mask=init_mask,
+                                            epsilon=epsilon, start_pos=start)
+        return matches, _store(c0, c_fin, inplace)
+    c = c0 if inplace else c0.clone()
+    matches = scan_kernels.MULTI(class_ids, m_all, finals_q, c,
+                                 epsilon=epsilon, start=start,
+                                 init_mask=init_mask)
+    return matches, c
+
+
+def _store(c0: torch.Tensor, c_fin: torch.Tensor,
+           inplace: bool) -> torch.Tensor:
+    """``inplace``: copy the plain version's final ring into ``c0``."""
+    if not inplace:
+        return c_fin
+    c0.copy_(c_fin)
+    return c0
+
+
+def unfused_refusal(window: DeviceWindow, start_pos, valid_counts,
+                    latest_q, consume_sq) -> Optional[str]:
+    """Why the three-kernel path cannot take a call, or None.
+
+    The scan kernels (as the TPU kernels they replace) take count windows,
+    one scalar start for every lane and ANY semantics only."""
+    if window.is_time:
+        return "a time window"
+    if isinstance(start_pos, (torch.Tensor, np.ndarray)) and \
+            np.ndim(start_pos) >= 1:
+        return "per-lane start_pos offsets"
+    if valid_counts is not None:
+        return "per-lane valid_counts"
+    if latest_q is not None:
+        return "LAST (latest_q)"
+    if consume_sq is not None:
+        return "CONSUME BY ANY (consume_sq)"
+    return None
 
 
 def cer_pipeline(attrs: torch.Tensor,
@@ -75,6 +200,8 @@ def cer_pipeline(attrs: torch.Tensor,
     ``inplace=True`` updates ``c0``'s tensors and returns them (the
     streaming engine's preallocated buffers); otherwise ``c0`` is left
     untouched.
+
+    ``impl`` routes fused / unfused / ref (module docstring).
     """
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
@@ -94,9 +221,17 @@ def cer_pipeline(attrs: torch.Tensor,
             raise ValueError(f"event_ts must be (T, B) = ({T}, {B}) like "
                              f"attrs, got {tuple(event_ts.shape)}")
     if impl == "unfused":
-        raise NotImplementedError(
-            "impl='unfused' needs the bitvector and cea_scan kernels, which "
-            "are not ported yet (ROADMAP.md Queue 2, items 3-5)")
+        reason = unfused_refusal(window, start_pos, valid_counts, latest_q,
+                                 consume_sq)
+        if reason is None:
+            return _pipeline_unfused(attrs, specs, class_of, m_all,
+                                     finals_q, c0, init_mask, epsilon,
+                                     start_pos, return_trace, inplace)
+        if _on_cuda(attrs, "cer_pipeline"):
+            raise ValueError(
+                f"impl='unfused' takes count windows, one scalar start_pos "
+                f"and ANY semantics; this call has {reason} — use "
+                "impl='fused'")
 
     if impl == "ref" or attrs.device.type == "cpu":
         return _pipeline_plain(attrs, specs, class_of, m_all, finals_q, c0,
@@ -188,6 +323,20 @@ def _clone_state(state):
     if isinstance(state, dict):
         return {k: v.clone() for k, v in state.items()}
     return state.clone()
+
+
+def _pipeline_unfused(attrs, specs, class_of, m_all, finals_q, c0,
+                      init_mask, epsilon, start_pos, return_trace, inplace):
+    """The three-dispatch path: bits → ``class_of[bits]`` → packed scan."""
+    T, B, A = attrs.shape
+    bits = bitvector(attrs.reshape(T * B, A), specs)
+    class_ids = class_of[bits.long()].reshape(T, B).to(torch.int32)
+    matches, c_fin = cea_scan_multi(class_ids, m_all, finals_q, c0,
+                                    init_mask=init_mask, epsilon=epsilon,
+                                    start_pos=start_pos, inplace=inplace)
+    if return_trace:
+        return matches, c_fin, class_ids
+    return matches, c_fin
 
 
 def _pipeline_plain(attrs, specs, class_of, m_all, finals_q, c0, init_mask,

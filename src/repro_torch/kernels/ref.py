@@ -25,7 +25,7 @@ for bit too.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -271,6 +271,91 @@ def _scan_multi_time_ref(C0: dict, M_all, class_ids, finals_q, init_mask,
     matches = (torch.stack(out) if out
                else C.new_zeros((0, B, fq.shape[0])))
     return {"C": C, "ts": tsr, "ovf": ovf}, matches
+
+
+def cea_step_ref(C: torch.Tensor, M: torch.Tensor, seed_slot: int,
+                 expire_slot: int, finals: torch.Tensor,
+                 init_state: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One windowed CEA step (Algorithm 1's update, dense form).
+
+    C (B, W, S) run counts; M (B, S, S) this event's transition matrix per
+    lane; ``seed_slot`` is ``j mod W``, where a fresh run starts at
+    ``init_state``; ``expire_slot`` is the slot of start ``j - ε - 1``,
+    which just left the window; finals (S,).  Returns ``(C', matches
+    (B,))``.
+    """
+    B, W, S = C.shape
+    arange_w = torch.arange(W, device=C.device)
+    clear = (arange_w == seed_slot) | (arange_w == expire_slot)
+    C = C * (1.0 - clear.to(C.dtype))[None, :, None]
+    seed_oh = (arange_w == seed_slot).to(C.dtype)
+    init_oh = (torch.arange(S, device=C.device) == init_state).to(C.dtype)
+    C = C + seed_oh[None, :, None] * init_oh[None, None, :]
+    C = torch.bmm(C, M)
+    matches = torch.einsum("bws,s->b", C, finals.to(C.dtype))
+    return C, matches
+
+
+def cea_scan_ref(C0: torch.Tensor, M_all: torch.Tensor,
+                 class_ids: torch.Tensor, finals: torch.Tensor, epsilon: int,
+                 start_pos: int = 0, init_state: int = 1
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-query scan of :func:`cea_step_ref` over T events, window
+    ``end - start ≤ ε``, one scalar ``start_pos`` for every lane.
+
+    Requires ring size W ≥ ε+1.  Returns ``(C_T, matches (T, B))``.
+    """
+    B, W, S = C0.shape
+    if W < epsilon + 1:
+        raise ValueError(f"ring {W} < epsilon+1 ({epsilon + 1})")
+    C = C0
+    out = []
+    for t in range(class_ids.shape[0]):
+        j = int(start_pos) + t
+        C, m = cea_step_ref(C, M_all[class_ids[t].long()], j % W,
+                            (j - epsilon - 1) % W, finals, init_state)
+        out.append(m)
+    return C, torch.stack(out) if out else C0.new_zeros((0, B))
+
+
+# ---------------------------------------------------------------------------
+# the unfused pipeline's plain entries (the reference package's ops layout)
+# ---------------------------------------------------------------------------
+
+
+def bitvector(attrs: torch.Tensor,
+              specs: Sequence[Tuple[int, int, float]]) -> torch.Tensor:
+    """(N, A) f32 × predicate specs ``(column, op, threshold)`` → (N,)
+    int32 packed bits; thresholds are rounded to f32 before the compare."""
+    dev = attrs.device
+    idx = torch.tensor([s[0] for s in specs], dtype=torch.int64, device=dev)
+    ops_ = torch.tensor([s[1] for s in specs], dtype=torch.int64, device=dev)
+    thr = torch.tensor([s[2] for s in specs], dtype=torch.float32,
+                       device=dev)
+    return bitvector_ref(attrs, idx, ops_, thr)
+
+
+def cea_scan(class_ids: torch.Tensor, m_all: torch.Tensor,
+             finals: torch.Tensor, c0: torch.Tensor, *, epsilon: int,
+             start_pos: int = 0, init_state: int = 1
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """class_ids (T, B) × finals (S,) × c0 (B, W, S) → (matches (T, B),
+    c_final (B, W, S))."""
+    c_fin, matches = cea_scan_ref(c0, m_all, class_ids, finals, epsilon,
+                                  start_pos=start_pos, init_state=init_state)
+    return matches, c_fin
+
+
+def cea_scan_multi(class_ids: torch.Tensor, m_all: torch.Tensor,
+                   finals_q: torch.Tensor, c0: torch.Tensor, *,
+                   init_mask: torch.Tensor, epsilon: int, start_pos: int = 0
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """class_ids (T, B) × finals_q (Q, S) × init_mask (S,) × c0 (B, W, S) →
+    (matches (T, B, Q), c_final (B, W, S))."""
+    c_fin, matches = cea_scan_multi_ref(c0, m_all, class_ids, finals_q,
+                                        init_mask, epsilon,
+                                        start_pos=start_pos)
+    return matches, c_fin
 
 
 # ---------------------------------------------------------------------------

@@ -204,6 +204,14 @@ def window_overflow(state: State) -> np.ndarray:
     return np.zeros(state.shape[0], bool)
 
 
+def require_count_scan(window: DeviceWindow) -> None:
+    """Guard of the count-window scan entry points (``scan()``)."""
+    if window.is_time:
+        raise ValueError("scan() drives the count-window scan kernels; "
+                         "time-window queries evaluate through "
+                         "pipeline()/run()")
+
+
 def ring_slot_remap(old_ring: int, new_ring: int, next_pos: np.ndarray
                     ) -> tuple:
     """Per-lane slot mapping from a W0 ring onto a larger W1 ring.

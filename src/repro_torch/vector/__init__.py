@@ -1,7 +1,11 @@
 from . import tecs_arena
 from .engine import VectorEngine, VectorQueryTables
+from .multiquery import (MultiQueryEngine, Packing, build_packing,
+                         check_packing_invariants)
 from .streaming import StreamingVectorEngine
 from .tecs_arena import ArenaOverflow, ArenaSnapshot
 
 __all__ = ["VectorEngine", "VectorQueryTables", "StreamingVectorEngine",
-           "ArenaOverflow", "ArenaSnapshot", "tecs_arena"]
+           "MultiQueryEngine", "Packing", "build_packing",
+           "check_packing_invariants", "ArenaOverflow", "ArenaSnapshot",
+           "tecs_arena"]

@@ -3,7 +3,9 @@
 Per stream position the engine computes the exact number of complex events
 closing there, with the windowed counting-semiring scan of
 :func:`repro_torch.kernels.ops.cer_pipeline` (the Hopper fused-scan kernel
-on CUDA), and with :meth:`VectorEngine.run_enumerate` also the complex
+on CUDA, or the three-kernel unfused path with ``impl="unfused"``; its
+halves are :meth:`VectorEngine.classify` and :meth:`VectorEngine.scan`),
+and with :meth:`VectorEngine.run_enumerate` also the complex
 events themselves, through the device tECS arena
 (:mod:`repro_torch.vector.tecs_arena`).  For fixed-size chunks over
 unbounded streams use
@@ -27,7 +29,7 @@ from . import tecs_arena
 from .encoder import EventEncoder
 from .symbolic import SymbolicCEA, compile_symbolic
 
-_NOT_PORTED = "not ported yet: see ROADMAP.md, Queue 1 and Queue 2"
+_NOT_PORTED = "not ported yet: see ROADMAP.md, Queue 1"
 
 
 def resolve_device(device=None) -> torch.device:
@@ -194,13 +196,30 @@ class VectorEngine:
                                self.device, base_pos=base_pos)
 
     # ------------------------------------------------------------------
-    def classify(self, attrs):
-        raise NotImplementedError(
-            "classify() needs the bitvector kernel, " + _NOT_PORTED)
+    def classify(self, attrs: torch.Tensor) -> torch.Tensor:
+        """(T, B, A) attributes → (T, B) int32 symbol-class ids (the
+        bit-vector kernel on CUDA, then the ``class_of`` gather)."""
+        T, B, A = attrs.shape
+        bits = ops.bitvector(attrs.reshape(T * B, A), self.encoder.specs)
+        return self.tables.class_of[bits.long()].reshape(T, B)
 
-    def scan(self, class_ids, state, start_pos=0):
-        raise NotImplementedError(
-            "scan() needs the cea_scan kernel, " + _NOT_PORTED)
+    def scan(self, class_ids: torch.Tensor, state: torch.Tensor,
+             start_pos: Union[int, torch.Tensor] = 0
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(T, B) class ids × (B, W, S) state → (matches (T, B), state').
+
+        The count-window scan kernel of the unfused pipeline; time-window
+        queries, LAST and CONSUME BY ANY evaluate through
+        :meth:`pipeline`."""
+        wkern.require_count_scan(self.window)
+        if self.tables.latest_q is not None or \
+                self.tables.consume_sq is not None:
+            raise ValueError(
+                "scan() cannot honor LAST / CONSUME BY ANY semantics "
+                f"(query strategy {self.compiled.query.strategy!r}); "
+                "use pipeline()")
+        return ops.cea_scan(class_ids, self.tables.m_all, self.tables.finals,
+                            state, epsilon=self.epsilon, start_pos=start_pos)
 
     def pipeline(self, attrs: torch.Tensor, state,
                  start_pos: Union[int, torch.Tensor] = 0,

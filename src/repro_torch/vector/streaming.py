@@ -1,7 +1,10 @@
 """Streaming CER runtime: fixed-size chunks over unbounded streams.
 
 :class:`StreamingVectorEngine` feeds ``(chunk_len, B)`` chunks through the
-fused pipeline:
+device pipeline (fused, or the unfused three-kernel path) of a
+:class:`~repro_torch.vector.engine.VectorEngine` or of a packed
+:class:`~repro_torch.vector.multiquery.MultiQueryEngine`, whose counts carry
+a trailing query axis:
 
 * **Preallocated state** — the ``(B, W, S)`` run-count ring (and, for time
   windows, the timestamp ring and ``ovf`` latches) lives in device buffers
@@ -19,7 +22,8 @@ fused pipeline:
 
 Snapshots (:meth:`snapshot` / :meth:`restore`) use the reference package's
 layout and manifest, so a snapshot taken by either package restores into
-the other.
+the other; ``restore(migrate_packing=True)`` moves a packed engine's state
+onto another packing of overlapping queries.
 """
 from __future__ import annotations
 
@@ -44,7 +48,10 @@ SNAPSHOT_FORMAT = 1
 #: snapshot leaves whose axis 1 is the window ring (``…/arena/cell`` too)
 _RING_LEAVES = ("state", "state/C", "state/C/C", "state/ts", "state/C/ts")
 
-_NOT_PORTED = "not ported yet: see ROADMAP.md, Queue 1"
+#: snapshot leaves whose last axis is the packed state dimension (the count
+#: rings of the plain, arena and time-window layouts); ``…/arena/cell`` has
+#: the unpadded Ŝ and the NULL fill, and is handled apart
+_PACKED_STATE_LEAVES = ("state", "state/C", "state/C/C")
 
 
 def _flatten_state(prefix: str, tree, out: Dict[str, np.ndarray]) -> None:
@@ -55,6 +62,75 @@ def _flatten_state(prefix: str, tree, out: Dict[str, np.ndarray]) -> None:
             _flatten_state(f"{prefix}/{k}", tree[k], out)
     else:
         out[prefix] = tree.cpu().numpy().copy()
+
+
+def migrate_packed_arrays(arrays: Dict[str, np.ndarray], old: dict,
+                          new: dict) -> Dict[str, np.ndarray]:
+    """Slice and scatter per-query state regions between two packings.
+
+    ``old``/``new`` are :meth:`~repro_torch.vector.multiquery.Packing.spec`
+    dicts.  Queries are matched by qid: each surviving query's state
+    region (count ring columns, arena cell columns, root slots) moves from
+    its old offset to its new one; regions of removed queries are dropped;
+    regions of new queries start empty (zeros for rings, NULL for cells and
+    roots).  Leaves without a packed state axis (timestamp rings, ``ovf``
+    latches, node stores, pointers) pass through.  Blocks do not interact
+    in the packed scan, so a surviving query continues exactly as an engine
+    that evaluated only it from the start.
+    """
+    o_idx = {q: i for i, q in enumerate(old["qids"])}
+    n_idx = {q: i for i, q in enumerate(new["qids"])}
+    common = [q for q in new["qids"] if q in o_idx]
+    for q in common:
+        if old["sizes"][o_idx[q]] != new["sizes"][n_idx[q]]:
+            raise ValueError(
+                f"query {q!r} changed state count across the repack "
+                f"({old['sizes'][o_idx[q]]} → {new['sizes'][n_idx[q]]}) — "
+                "its live runs cannot be migrated; remove and re-add it")
+        # its ring columns hold runs under its own strategy and CONSUME
+        # clause (specs without these keys are not checked)
+        for key, what in (("strategies", "selection strategy"),
+                          ("consumes", "CONSUME clause")):
+            if key in old and key in new and \
+                    old[key][o_idx[q]] != new[key][n_idx[q]]:
+                raise ValueError(
+                    f"query {q!r} changed its {what} across the repack "
+                    f"({old[key][o_idx[q]]!r} → {new[key][n_idx[q]]!r}) — "
+                    "its live runs cannot be migrated; remove and "
+                    "re-add it")
+    out: Dict[str, np.ndarray] = {}
+    for name, arr in arrays.items():
+        if name in _PACKED_STATE_LEAVES:
+            if arr.shape[-1] != old["padded_states"]:
+                raise ValueError(
+                    f"snapshot leaf {name!r} has state axis {arr.shape[-1]},"
+                    f" its packing spec declares {old['padded_states']}")
+            new_arr = np.zeros(arr.shape[:-1] + (new["padded_states"],),
+                               arr.dtype)
+        elif name.endswith("/arena/cell"):
+            if arr.shape[-1] != old["num_states"]:
+                raise ValueError(
+                    f"snapshot leaf {name!r} has state axis {arr.shape[-1]},"
+                    f" its packing spec declares {old['num_states']}")
+            new_arr = np.full(arr.shape[:-1] + (new["num_states"],),
+                              tecs_arena.NULL, arr.dtype)
+        elif name == "roots_val":
+            new_arr = np.full((arr.shape[0], new["num_queries"]),
+                              tecs_arena.NULL, arr.dtype)
+            for q in common:
+                new_arr[:, n_idx[q]] = arr[:, o_idx[q]]
+            out[name] = new_arr
+            continue
+        else:
+            out[name] = arr
+            continue
+        for q in common:
+            oo = old["offsets"][o_idx[q]]
+            no = new["offsets"][n_idx[q]]
+            sz = old["sizes"][o_idx[q]]
+            new_arr[..., no:no + sz] = arr[..., oo:oo + sz]
+        out[name] = new_arr
+    return out
 
 
 def migrate_ring_arrays(arrays: Dict[str, np.ndarray], old_ring: int,
@@ -128,7 +204,7 @@ def _restore_into(template, arrays: Dict[str, np.ndarray]):
 
 
 class StreamingVectorEngine:
-    """Fixed-chunk streaming wrapper around the fused device pipeline."""
+    """Fixed-chunk streaming wrapper around the device pipeline."""
 
     _compat_keys = ("format", "engine", "query_fingerprint", "window",
                     "chunk_len", "batch", "num_states", "num_queries",
@@ -139,8 +215,8 @@ class StreamingVectorEngine:
                  arena_capacity: Optional[int] = None,
                  arena_impl: Optional[str] = None,
                  strict_overflow: bool = False):
-        """``engine``: a constructed :class:`VectorEngine`; its device is
-        the stream's.
+        """``engine``: a constructed :class:`VectorEngine` or
+        :class:`MultiQueryEngine`; its device is the stream's.
 
         chunk_len: events per :meth:`feed` — fixed.
         batch:     number of parallel substreams (lanes).
@@ -154,8 +230,9 @@ class StreamingVectorEngine:
                    window's ``ovf`` latch tripped.
         """
         if isinstance(engine, str):
-            raise TypeError("pass a constructed VectorEngine (a bare query "
-                            "string has no window)")
+            raise TypeError("pass a constructed VectorEngine or "
+                            "MultiQueryEngine (a bare query string has no "
+                            "window)")
         self.engine = engine
         self.encoder = engine.encoder
         self.device = engine.device
@@ -165,7 +242,9 @@ class StreamingVectorEngine:
         self.batch = int(batch)
         self.impl = impl if impl is not None else engine.impl
         t = engine.tables
-        self._finals_q = t.finals[None, :]
+        # single-query tables in the pipeline's multi-query form
+        self._single_query = t.finals.ndim == 1
+        self._finals_q = t.finals[None, :] if self._single_query else t.finals
         self._init_mask = t.init_mask
         self._class_of = t.class_of
         self._class_ind = t.class_ind
@@ -223,8 +302,8 @@ class StreamingVectorEngine:
     @property
     def compile_count(self) -> int:
         """Builds and loads of the kernel library in this process (1 once a
-        kernel feed ran, 0 on the plain route)."""
-        if self.impl == "fused" and self.device.type == "cuda":
+        kernel feed ran, ``fused`` or ``unfused``; 0 on the plain route)."""
+        if self.impl != "ref" and self.device.type == "cuda":
             return LIBRARY.loads
         return 0
 
@@ -279,6 +358,10 @@ class StreamingVectorEngine:
                                 np.nonzero(self.window_overflow)[0]],
             "pos": int(self._pos),
             "num_roots": len(self._roots),
+            # not a compat key: restore(migrate_packing=True) reads it
+            "packing": (self.engine.packing.spec()
+                        if getattr(self.engine, "packing", None) is not None
+                        else None),
         }
 
     def snapshot(self) -> dict:
@@ -305,6 +388,23 @@ class StreamingVectorEngine:
             raise ValueError(
                 "snapshot is incompatible with this engine — restoring "
                 "would silently corrupt state:\n  " + "\n  ".join(bad))
+
+    #: compat keys waived by a ``migrate_packing`` restore: the packing, and
+    #: with it the fingerprint and packed dimensions, may differ
+    _packing_elastic_keys = ("query_fingerprint", "num_states",
+                             "num_queries", "semantics")
+
+    def _migrated_arrays(self, snapshot: dict) -> Dict[str, np.ndarray]:
+        """The snapshot's packed-state leaves remapped onto this engine's
+        packing (queries matched by qid)."""
+        old = (snapshot["meta"] or {}).get("packing")
+        pk = getattr(self.engine, "packing", None)
+        if old is None or pk is None:
+            raise ValueError(
+                "migrate_packing restore needs packing specs on both sides "
+                "— the snapshot has no packed manifest or the engine is "
+                "not a packed MultiQueryEngine")
+        return migrate_packed_arrays(snapshot["arrays"], old, pk.spec())
 
     def _check_window_elastic(self, meta: dict, target_ring: int) -> None:
         """Kind, size and time_attr must match; only the ring may grow."""
@@ -341,12 +441,17 @@ class StreamingVectorEngine:
         state.  ``max_window_events=`` grows a time window's ring while
         restoring: live starts move to slot ``j mod W1`` and the engine
         continues exactly like one built with the wider ring.
+
+        ``migrate_packing=True`` takes a snapshot of an engine over another
+        packing of overlapping queries: surviving queries' state regions
+        move to their new offsets (:func:`migrate_packed_arrays`); window,
+        chunk geometry and arena capacity must still match.
         """
-        if migrate_packing:
-            raise NotImplementedError("migrate_packing (packed multi-query "
-                                      "engines) is " + _NOT_PORTED)
         meta, arrays = snapshot["meta"], dict(snapshot["arrays"])
         skip: Tuple[str, ...] = ()
+        if migrate_packing:
+            skip = self._packing_elastic_keys
+            arrays = dict(self._migrated_arrays(snapshot))
         snap_ring = int((meta.get("window") or {}).get("ring",
                                                       self.window.ring))
         new_w = (self.window.regrow(max_window_events)
@@ -358,7 +463,7 @@ class StreamingVectorEngine:
                 "regrow cannot shrink")
         if snap_ring != new_w.ring:
             self._check_window_elastic(meta, target_ring=new_w.ring)
-            skip = ("window",)
+            skip = skip + ("window",)
         self._check_manifest(meta, skip=skip)
         regrown = new_w.ring != self.window.ring
         if regrown:
@@ -394,8 +499,9 @@ class StreamingVectorEngine:
         """Feed one chunk of B streams × chunk_len events.
 
         Returns ``(counts, hits)``: counts ``(chunk_len, B)`` int64 match
-        counts per position; hits the absolute ``(position, stream)`` pairs
-        with ≥ 1 match.
+        counts per position (with a trailing query axis for a
+        :class:`MultiQueryEngine`); hits the absolute ``(position,
+        stream)`` pairs with ≥ 1 match.
         """
         if self.window.is_time:
             attrs, ts = self.encoder.encode_streams_ts(
@@ -450,8 +556,12 @@ class StreamingVectorEngine:
                 init_mask=self._init_mask, start=self._pos % self._ring,
                 gbase=self._pos, arena_impl=self.arena_impl, **kw)
         self._pos += T
-        counts = counts_f[:, :, 0].cpu().numpy().astype(np.int64)
-        hits = [(t0 + int(t), int(b)) for t, b in zip(*np.nonzero(counts))]
+        if self._single_query:
+            counts_f = counts_f[:, :, 0]
+        counts = counts_f.cpu().numpy().astype(np.int64)
+        hit_dims = np.nonzero(counts.sum(axis=-1) if counts.ndim == 3
+                              else counts)
+        hits = [(t0 + int(t), int(b)) for t, b in zip(*hit_dims)]
         if roots is not None:
             roots_np = roots.cpu().numpy()
             for p, b in hits:

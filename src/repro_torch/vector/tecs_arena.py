@@ -129,6 +129,36 @@ def tables_from_symbolic(symbolic) -> ArenaTables:
                         symbolic.finals[None, :], (symbolic.initial,))
 
 
+def tables_from_packed(symbolics, offsets, class_of, reps) -> ArenaTables:
+    """Arena tables of the packed multi-query engine (block-diagonal CEA).
+
+    ``reps[c]`` is a representative bit-vector of joint class ``c``; each
+    query block maps it through its own class partition.  Block-local dead
+    states (0) stay "none"; live targets and sources shift by the block
+    offset.
+    """
+    n_classes = int(np.asarray(class_of).max()) + 1
+    S_hat = sum(s.num_states for s in symbolics)
+    dm = np.zeros((S_hat, n_classes), np.int32)
+    du = np.zeros((S_hat, n_classes), np.int32)
+    finals = np.zeros((len(symbolics), S_hat), bool)
+    inits = []
+    for qi, sym in enumerate(symbolics):
+        off = offsets[qi]
+        for c in range(n_classes):
+            cq = int(sym.class_of[reps[c]])
+            for s in range(1, sym.num_states):
+                t = int(sym.delta_mark[s, cq])
+                if t != 0:
+                    dm[off + s, c] = off + t
+                t = int(sym.delta_unmark[s, cq])
+                if t != 0:
+                    du[off + s, c] = off + t
+        finals[qi, off:off + sym.num_states] = sym.finals
+        inits.append(off + sym.initial)
+    return build_tables(dm, du, finals, inits)
+
+
 def _cached(tables: ArenaTables, name: str, key, make):
     cache = getattr(tables, "_cache", None)
     if cache is None:
@@ -634,7 +664,8 @@ def run_enumerate(engine, streams, start_pos: int = 0,
     """One-shot pipeline, arena and enumeration over pre-batched streams.
 
     ``engine`` is a constructed :class:`~repro_torch.vector.engine.
-    VectorEngine`.  The counting pipeline and the arena run on the engine's
+    VectorEngine` or a packed :class:`~repro_torch.vector.multiquery.
+    MultiQueryEngine`.  The counting pipeline and the arena run on the engine's
     device; the host then fetches the arena and walks Algorithm 2 per hit.
     ``strategy=None`` enumerates under the query's compiled semantics (LAST
     takes the latest-start group, capped by its count).  Returns ``(counts

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from repro_torch.data import StreamSpec, random_stream
-from repro_torch.kernels import arena_update, fused_scan
+from repro_torch.kernels import arena_update, bitvector, cea_scan, fused_scan
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels import window as wkern
@@ -27,8 +27,8 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the fused-scan kernel is CUDA C++ "
-                    "and has no CPU mode")
+        pytest.skip("needs a CUDA device: the port's kernels are CUDA C++ "
+                    "and have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
@@ -284,3 +284,162 @@ def test_arena_router_raises_on_what_the_kernel_refuses(dev):
                                      for c in cells), cls, hits, 0, T,
                                lay=lay, ptab=ptab[:, :S].contiguous(),
                                finals_sq=fin[:S])
+
+
+# ---------------------------------------------------------------------------
+# the unfused pipeline: bit-vector and scan kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("N,A,k", [(1, 1, 1), (7, 3, 6), (300, 8, 14),
+                                   (5000, 5, 31)])
+def test_bitvector_kernel_matches_plain_version(dev, N, A, k):
+    rng = np.random.default_rng(N + A + k)
+    attrs = rng.normal(size=(N, A)).astype(np.float32)
+    attrs[rng.random((N, A)) < 0.1] = np.nan
+    attrs[rng.random((N, A)) < 0.1] = 0.0
+    specs = [(int(rng.integers(0, A)), i % 6,
+              float(rng.choice([0.0, rng.normal()]))) for i in range(k)]
+    x = torch.from_numpy(attrs)
+    launches = bitvector.KERNEL.launches
+    got = ops.bitvector(x.to(dev), specs)
+    torch.cuda.synchronize()
+    assert bitvector.KERNEL.launches == launches + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), ops.bitvector(x, specs))
+
+
+def scan_tables(rng, S, C, NQ, branching=True):
+    """Tables with two successors per row, and entries of 2 where they
+    coincide (the reference package's kernel tests).  Counts can then
+    double every step, so wide windows take ``branching=False`` (at most
+    one 1 per row) to stay below 2^24."""
+    M = np.zeros((C, S, S), np.float32)
+    for s in range(1, S):
+        for c in range(C):
+            for _ in range(2 if branching else 1):
+                t = rng.integers(0, S)
+                if t:
+                    M[c, s, t] += 1
+    finals = (rng.random((NQ, S)) < 0.4).astype(np.float32)
+    finals[:, 0] = 0.0
+    init = np.zeros(S, np.float32)
+    init[rng.choice(np.arange(1, S), size=min(NQ, S - 1), replace=False)] = 1
+    return M, finals, init
+
+
+# (S, NQ, eps, W): the 8/16/32 buckets; rings of exactly ε+1, padded, and
+# one too large for shared memory (W·S·4 > 227 KB)
+SCAN_CASES = [(5, 1, 6, 7), (12, 3, 9, 16), (28, 4, 40, 41),
+              (20, 8, 3000, 3001)]
+
+
+@pytest.mark.parametrize("S,NQ,eps,W", SCAN_CASES)
+@pytest.mark.parametrize("start", [0, 123457])
+def test_scan_kernels_match_plain_version(dev, S, NQ, eps, W, start):
+    rng = np.random.default_rng(S * 7 + NQ + start)
+    B, T, C = 9, 40, 6
+    M, finals, init = scan_tables(rng, S, C, NQ, branching=eps < 10)
+    ids = rng.integers(0, C, (T, B)).astype(np.int32)
+    c0 = (rng.random((B, W, S)) < 0.02).astype(np.float32)
+    c0[:, :, 0] = 0.0
+    cuda = [torch.from_numpy(x).to(dev) for x in (ids, M, finals, init, c0)]
+    cpu = [torch.from_numpy(x) for x in (ids, M, finals, init, c0)]
+    n_multi, n_single = cea_scan.MULTI.launches, cea_scan.SINGLE.launches
+    got = ops.cea_scan_multi(*cuda[:3], cuda[4], init_mask=cuda[3],
+                             epsilon=eps, start_pos=start)
+    got1 = ops.cea_scan(cuda[0], cuda[1], cuda[2][0], cuda[4], epsilon=eps,
+                        start_pos=start)
+    torch.cuda.synchronize()
+    assert cea_scan.MULTI.launches == n_multi + 1
+    assert cea_scan.SINGLE.launches == n_single + 1
+    want = ops.cea_scan_multi(*cpu[:3], cpu[4], init_mask=cpu[3],
+                              epsilon=eps, start_pos=start)
+    want1 = ops.cea_scan(cpu[0], cpu[1], cpu[2][0], cpu[4], epsilon=eps,
+                         start_pos=start)
+    for g, w in zip(got + got1, want + want1):
+        assert torch.equal(g.cpu(), w)
+    assert float(got[0].max()) < 2 ** 24
+    # the input ring is left untouched without inplace
+    assert torch.equal(cuda[4].cpu(), cpu[4])
+
+
+def test_unfused_pipeline_and_engines_on_card(dev):
+    """The unfused streaming engine and a packed engine on the card equal
+    the fused kernel and the CPU run; the library is loaded once."""
+    from repro_torch.vector import MultiQueryEngine
+    query = "SELECT * FROM S WHERE A1 ; A2+ ; A3 WITHIN 50 events"
+    packed = ["SELECT * FROM S WHERE A1 ; A2+ ; A3 WITHIN 50 events",
+              "SELECT * FROM S WHERE A2 ; A3 WITHIN 50 events",
+              "SELECT * FROM S WHERE A3 ; A1 ; A3 WITHIN 50 events"]
+    B, T = 8, 32
+    streams = [random_stream(StreamSpec(["A1", "A2", "A3"], seed=b), 4 * T)
+               for b in range(B)]
+    for make in (lambda device, impl: VectorEngine(query, device=device,
+                                                   impl=impl),
+                 lambda device, impl: MultiQueryEngine(packed, device=device,
+                                                       impl=impl)):
+        runs, states = {}, {}
+        for name, device, impl in (("unfused", None, "unfused"),
+                                   ("fused", None, "fused"),
+                                   ("cpu", "cpu", "unfused")):
+            se = StreamingVectorEngine(make(device, impl), T, B)
+            runs[name] = [se.feed([s[i * T:(i + 1) * T] for s in streams])
+                          for i in range(4)]
+            states[name] = se.state.cpu()
+            if device is None:
+                assert se.compile_count == 1
+        for name in ("fused", "cpu"):
+            for (ck, hk), (cp, hp) in zip(runs["unfused"], runs[name]):
+                np.testing.assert_array_equal(ck, cp)
+                assert hk == hp
+            assert torch.equal(states["unfused"], states[name])
+
+
+def test_unfused_routers_raise_on_what_the_kernels_refuse(dev):
+    rng = np.random.default_rng(1)
+    T, B = 4, 2
+    ids = torch.zeros((T, B), dtype=torch.int32, device=dev)
+
+    def scan(S, NQ, W, eps, **kw):
+        M, finals, init = scan_tables(rng, S, 2, NQ)
+        return ops.cea_scan_multi(
+            ids, torch.from_numpy(M).to(dev),
+            torch.from_numpy(finals).to(dev),
+            torch.zeros((B, W, S), device=dev),
+            init_mask=torch.from_numpy(init).to(dev), epsilon=eps, **kw)
+    with pytest.raises(ValueError, match="det states"):
+        scan(33, 1, 8, 3)
+    with pytest.raises(ValueError, match="queries"):
+        scan(12, 9, 8, 3)
+    with pytest.raises(ValueError, match="ring"):
+        scan(12, 2, 3, 3)
+    with pytest.raises(ValueError, match="scalar start_pos"):
+        scan(12, 2, 8, 3, start_pos=torch.zeros(B, device=dev))
+    with pytest.raises(ValueError, match="at most 31"):
+        ops.bitvector(torch.zeros((3, 1), device=dev),
+                      [(0, 0, 0.0)] * 32)
+    # unfused cer_pipeline calls the scan kernels do not take
+    S, C, A, k = 6, 3, 2, 2
+    specs, class_of, M, finals, init = random_tables(rng, S, C, A, k, 2)
+    args = (torch.zeros((T, B, A), device=dev), specs,
+            torch.from_numpy(class_of).to(dev), None,
+            torch.from_numpy(M).to(dev), torch.from_numpy(finals).to(dev))
+    c0 = torch.zeros((B, 8, S), device=dev)
+    init_t = torch.from_numpy(init).to(dev)
+    for kw, reason in (
+            (dict(start_pos=torch.zeros(B, dtype=torch.int32, device=dev)),
+             "per-lane start_pos"),
+            (dict(valid_counts=torch.full((B,), T, device=dev)),
+             "valid_counts"),
+            (dict(latest_q=torch.ones(2, device=dev)), "LAST"),
+            (dict(consume_sq=torch.ones((2, S), device=dev)), "CONSUME")):
+        with pytest.raises(ValueError, match=reason):
+            ops.cer_pipeline(*args, c0, init_mask=init_t, epsilon=5,
+                             impl="unfused", **kw)
+    window = wkern.DeviceWindow.time(5.0, max_window_events=8)
+    with pytest.raises(ValueError, match="time window"):
+        ops.cer_pipeline(*args, wkern.init_state(window, B, S, dev),
+                         init_mask=init_t, window=window,
+                         event_ts=torch.zeros((T, B), device=dev),
+                         impl="unfused")

@@ -289,8 +289,11 @@ def test_contract_errors():
         _small_call(epsilon=None, window=tw)
     with pytest.raises(ValueError, match=r"event_ts must be \(T, B\)"):
         _small_call(epsilon=None, window=tw, event_ts=torch.zeros((2, 5)))
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        _small_call(impl="unfused")
+    with pytest.raises(ValueError, match="event_ts"):
+        _small_call(impl="unfused", epsilon=None, window=tw)
+    # the unfused path is ported: on the CPU it equals the fused route
+    unfused, fused = _small_call(impl="unfused"), _small_call(impl="fused")
+    assert all(torch.equal(a, b) for a, b in zip(unfused, fused))
 
 
 @pytest.mark.parametrize("limit,kw", [

@@ -171,12 +171,12 @@ def test_reset_rewinds_and_keeps_buffers():
 def test_unported_paths_raise():
     te = TVector(CASES["count"][0], device="cpu")
     ts = TStreaming(te, 8, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # classify, scan and migrate_packing are ported (test_torch_unfused.py,
+    # test_torch_multiquery.py); a single-query engine has no packing
+    with pytest.raises(ValueError, match="packing specs on both sides"):
         ts.restore(ts.snapshot(), migrate_packing=True)
-    for call in (lambda: te.classify(None), lambda: te.scan(None, None),
-                 lambda: te.partitioned_streaming(("name",), 8, 2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        te.partitioned_streaming(("name",), 8, 2)
 
 
 def test_engine_defaults_to_cuda():
