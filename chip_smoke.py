@@ -12,8 +12,10 @@ then runs these phases, each printing one JSON line:
 0. card: ``nvidia-smi`` name and power limit, versions, library build time;
 1. main path at full width: ``A1 ; A2 ; A3 WITHIN 3200 events`` (ring
    3208), 1024 lanes, 8 chunks of 256 through
-   ``StreamingVectorEngine.feed_attrs``; kernel ≡ plain version and a
-   closed-form count on a few lanes; times and the bound;
+   ``StreamingVectorEngine.feed_attrs``, the ring whole in one block's
+   shared memory (``n_split`` 1); kernel ≡ plain version and a
+   closed-form count on a few lanes; times and the bound, and the time of
+   a forced split over two blocks per lane, which must equal it;
 2. encoder and host oracle: the same query ``WITHIN 100 events`` fed as
    Events through ``feed``; counts equal the host ``Engine``'s;
 3. time window and CONSUME: stock Q1 and Q3 (``WITHIN 30000
@@ -21,7 +23,8 @@ then runs these phases, each printing one JSON line:
    lane 0 (which trades slower, so the host can enumerate its matches),
    ``ovf`` clear;
 4. LAST; per-lane offsets, valid counts and the trace with CONSUME on a
-   ring kept in global memory (D5), and with 26 states (K5): kernel ≡ plain;
+   ring kept in global memory by one block (D5), and with 26 states (K5):
+   kernel ≡ plain;
 5. enumeration at full width: the phase-1 query with the tECS arena
    (``arena_capacity=2**18``, M = 57 738 record slots per event), 64 lanes,
    8 chunks of 256 through both kernels; node store, cells, pointers and
@@ -39,14 +42,18 @@ then runs these phases, each printing one JSON line:
    ``scan`` (bitvector + cea_scan) ≡ phase 1's fused run and the closed
    form; each kernel's time, bound and plain time;
 9. the packed ``MultiQueryEngine``: four standing queries of the Fig. 8
-   shape (Ŝ = 28, k = 9, 512 joint classes, ring 3208, a 368 MB ring in
-   global memory), 1024 lanes, 8 chunks through ``impl="fused"``,
-   ``"unfused"`` and the plain version; each query ≡ its closed form on 8
-   lanes; then the packed tECS arena at a window of 300 events, 16 lanes:
-   store ≡ plain, lane 0 ≡ the host ``Engine`` per query;
-10. edge shapes of the three new kernels against their plain versions
-    (state buckets, rings of exactly ε+1, start 0 and a chunked carry,
-    NaN attributes) and the routers' refusals.
+   shape (Ŝ = 28, k = 9, 512 joint classes, ring 3208, 372 KB a lane,
+   368 MB in all), 1024 lanes, 8 chunks through ``impl="fused"`` (the
+   ring split over ``n_split`` ≥ 2 blocks per lane in shared memory),
+   ``"unfused"`` (cea_scan_multi, ring in global memory) and the plain
+   version; each query ≡ its closed form on 8 lanes; the fused kernel's
+   ``n_split``, its time and the times of forced splits of 2, 4 and 8,
+   each ≡ plain; then the packed tECS arena at a window of 300 events,
+   16 lanes: store ≡ plain, lane 0 ≡ the host ``Engine`` per query;
+10. edge shapes of the kernels against their plain versions (state
+    buckets, rings of exactly ε+1, start 0 and a chunked carry, NaN
+    attributes; forced splits of the fused kernel at those shapes, 28
+    states and time windows) and the routers' refusals.
 
 Then the kernels line and, last, ``{"ok": true, "device": {...}}``.  Every
 comparison of kernel and plain version is exact (tolerance 0): counts are
@@ -226,6 +233,9 @@ def phase_main(seed: int, B: int = 1024, n_chunks: int = 8):
     check(launches == n_chunks, f"main path launched the kernel "
           f"{launches} times, expected {n_chunks}")
     check(kern.compile_count == 1, f"compile_count {kern.compile_count}")
+    plan = KERNEL.last_plan
+    check(plan == (True, 1), f"phase 1's ring (90 KB a lane) stays whole "
+          f"in one block's shared memory, got plan {plan}")
 
     counts_p, hits_p = [], []
     for attrs in chunks:
@@ -252,11 +262,21 @@ def phase_main(seed: int, B: int = 1024, n_chunks: int = 8):
               latest_q=t.latest_q, consume_sq=t.consume_sq, inplace=True)
     st_k, st_p = clone_state(kern.state), clone_state(kern.state)
 
-    def run(impl, st):
+    def run(impl, st, split=None):
         return lambda: ops.cer_pipeline(
             attrs, ve.encoder.specs, t.class_of, t.class_ind, t.m_all,
-            t.finals[None, :], st, impl=impl, **kw)
+            t.finals[None, :], st, impl=impl, split=split, **kw)
+    # a forced split of two blocks per lane (45 KB each) ≡ one block
+    one = run("fused", clone_state(kern.state))()
+    two = run("fused", clone_state(kern.state), split=2)()
+    check(KERNEL.last_plan == (True, 2), f"forced split=2 ran "
+          f"{KERNEL.last_plan}")
+    check(same(one[0], two[0]) and same(one[1], two[1]),
+          "phase 1: split=2 ≡ n_split=1 (counts and ring)")
+    del one, two
     ms = cuda_ms(run("fused", st_k), reps=5)
+    split2_ms = cuda_ms(run("fused", clone_state(kern.state), split=2),
+                        reps=5)
     plain_ms = cuda_ms(run("ref", st_p), reps=2)
 
     # where a feed's time goes: the steps of feed_attrs one at a time
@@ -292,9 +312,11 @@ def phase_main(seed: int, B: int = 1024, n_chunks: int = 8):
               "C": t.num_classes, "k": t.num_bits,
               "state_MB": B * W * S * 4 / 1e6,
               "launches": launches, "compile_count": kern.compile_count,
+              "use_smem": plan[0], "n_split": plan[1],
               "matches": int(counts_k.sum()), "hits": len(hits_k),
               "max_count": int(counts_k.max()),
               "kernel_ms_per_chunk": ms, "plain_ms_per_chunk": plain_ms,
+              "kernel_ms_per_chunk_split2": split2_ms,
               "feed_ms_per_chunk_median": 1e3 * feed_med,
               "feed_ms_per_chunk": [1e3 * s for s in feed_s],
               "events_per_s": B * T / feed_med,
@@ -382,6 +404,7 @@ def phase_last_lanes(seed: int, B: int = 256) -> None:
     """LAST through the streaming engine; per-lane offsets, valid counts
     and the trace through cer_pipeline, on a ring kept in global memory."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_scan import KERNEL as FKERNEL
     from repro_torch.vector import StreamingVectorEngine, VectorEngine
     rng = np.random.default_rng(seed + 4)
     T = 256
@@ -425,6 +448,10 @@ def phase_last_lanes(seed: int, B: int = 256) -> None:
                   valid_counts=valid, return_trace=True,
                   latest_q=t.latest_q, consume_sq=t.consume_sq)
         got = ops.cer_pipeline(*args, c0, impl="fused", **kw)
+        plan = FKERNEL.last_plan
+        check(plan == ((False, 1) if sparse_c0 else (True, 1)),
+              f"per-lane {query}: ring plan {plan} (D5 CONSUME: one block, "
+              "global memory; K5: one block, shared memory)")
         want = ops.cer_pipeline(*args, c0, impl="ref", **kw)
         for g, w, what in zip(got, want, ("counts", "ring", "trace")):
             check(same(g, w), f"per-lane {query}: {what} kernel ≡ plain")
@@ -433,7 +460,7 @@ def phase_last_lanes(seed: int, B: int = 256) -> None:
               f"per-lane {query}: counts stay below 2^24")
         emit({"phase": 4, "case": "per-lane offsets and trace",
               "query": query, "B": B, "W": ve.ring, "S": t.num_states,
-              "C": t.num_classes,
+              "C": t.num_classes, "use_smem": plan[0], "n_split": plan[1],
               "ring_bytes_per_lane": ve.ring * t.num_states * 4,
               "matches": int(got[0].sum()),
               "max_abs_err": max(max_abs_err(g, w)
@@ -1006,6 +1033,10 @@ def phase_packed(seed: int, B: int = 1024, n_chunks: int = 8) -> dict:
             hits += h
         runs[impl] = {"counts": np.concatenate(counts), "hits": hits,
                       "feed_s": feed_s, "launches": read_launches(counters)}
+        if impl == "fused":
+            plan = counters["fused_scan"].last_plan
+            check(plan[0] and plan[1] >= 2, f"phase 9's ring (372 KB a "
+                  f"lane) is split over blocks in shared memory, got {plan}")
     want = {"fused": dict(fused_scan=n_chunks),
             "unfused": dict(bitvector=n_chunks, cea_scan_multi=n_chunks),
             "ref": {}}
@@ -1056,11 +1087,26 @@ def phase_packed(seed: int, B: int = 1024, n_chunks: int = 8) -> dict:
                                             inplace=True, **kw), reps=3)
     plain_ms = cuda_ms(lambda: ref.cea_scan_multi(ids, t.m_all, t.finals,
                                                   st_p, **kw), reps=1)
-    st_f = ring.clone()
-    fused_ms = cuda_ms(lambda: ops.cer_pipeline(
-        chunks[0], mq.encoder.specs, t.class_of, t.class_ind, t.m_all,
-        t.finals, st_f, init_mask=t.init_mask, window=mq.window,
-        start_pos=start, inplace=True), reps=3)
+    # the fused kernel alone: the default split and forced ones, each ≡
+    # the plain version on chunk 0 from the final ring
+    def fused(st, impl="fused", split=None):
+        return ops.cer_pipeline(
+            chunks[0], mq.encoder.specs, t.class_of, t.class_ind, t.m_all,
+            t.finals, st, init_mask=t.init_mask, window=mq.window,
+            start_pos=start, impl=impl, split=split, inplace=True)
+    want_f = fused(ring.clone(), impl="ref")
+    fused_split_ms = {}
+    for split in (None, 2, 4, 8):
+        got = fused(ring.clone(), split=split)
+        check(same(got[0], want_f[0]) and same(got[1], want_f[1]),
+              f"phase 9: fused_scan split={split} ≡ plain on one chunk")
+        del got
+        st_f = ring.clone()
+        fused_split_ms[str(split or "default")] = cuda_ms(
+            lambda: fused(st_f, split=split), reps=3)
+        del st_f
+    del want_f
+    fused_ms = fused_split_ms["default"]
     # the same scan on half the ring (1608 slots, 186 KB a lane), which
     # fits shared memory: what the global-memory ring costs
     half = 1608
@@ -1068,7 +1114,7 @@ def phase_packed(seed: int, B: int = 1024, n_chunks: int = 8) -> dict:
     half_ms = cuda_ms(lambda: ops.cea_scan_multi(
         ids, t.m_all, t.finals, st_h, init_mask=t.init_mask,
         epsilon=half - 1, start_pos=start, inplace=True), reps=3)
-    del st_k, st_p, st_f, st_h
+    del st_k, st_p, st_h
     bound = scan_bound(t.m_all, t.finals, ids, B, mq.ring, 28, 4)
     med = {impl: float(np.median(run["feed_s"])) for impl, run in
            runs.items()}
@@ -1086,7 +1132,8 @@ def phase_packed(seed: int, B: int = 1024, n_chunks: int = 8) -> dict:
                                            for k, v in med.items()},
               "events_per_s": {k: B * T / v for k, v in med.items()},
               "cea_scan_multi_ms": ms, "cea_scan_multi_plain_ms": plain_ms,
-              "fused_scan_ms": fused_ms,
+              "fused_scan_ms": fused_ms, "fused_scan_n_split": plan[1],
+              "fused_scan_ms_by_n_split": fused_split_ms,
               "cea_scan_multi_ms_half_ring_in_smem": half_ms,
               "bound_ms": bound[0], "bound_by": bound[1],
               "bound_bytes": bound[2], "bound_flops": bound[3],
@@ -1213,6 +1260,63 @@ def phase_edges(seed: int, dev="cuda") -> None:
                   "phase 10: counts stay below 2^24")
             n += 1
 
+    # forced splits of the fused kernel against its plain version: rings
+    # of exactly ε+1, 28 states, start 0 and a chunked carry, time windows
+    from repro_torch.kernels.fused_scan import KERNEL as FKERNEL
+    for S, NQ, eps, W, split in ((5, 1, 6, 7, 2), (5, 2, 6, 7, 3),
+                                 (28, 4, 7, 8, 3), (12, 8, 9, 23, 5),
+                                 (7, 2, None, 37, 2), (28, 3, None, 37, 5)):
+        timed = eps is None
+        B, T, A, k, C = 37, 96, 3, 4, 6
+        # two successors per row under a count window (entries of 2 where
+        # they meet); one under the longer time window, so counts stay
+        # below 2^24
+        M = np.zeros((C, S, S), np.float32)
+        for s in range(1, S):
+            for c in range(C):
+                for _ in range(1 if timed else 2):
+                    tgt = rng.integers(0, S)
+                    if tgt:
+                        M[c, s, tgt] += 1
+        finals = (rng.random((NQ, S)) < 0.4).astype(np.float32)
+        finals[:, 0] = 0.0
+        init = np.zeros(S, np.float32)
+        init[rng.choice(np.arange(1, S), NQ, replace=False)] = 1.0
+        specs = [(int(rng.integers(0, A)), int(rng.integers(0, 6)),
+                  float(np.float32(rng.normal()))) for _ in range(k)]
+        class_of, attrs, ts, Mt, ft, it = (
+            torch.from_numpy(x).to(dev) for x in (
+                rng.integers(0, C, 1 << k).astype(np.int32),
+                rng.normal(size=(T, B, A)).astype(np.float32),
+                np.cumsum(rng.integers(0, 3, (T, B)), axis=0).astype(
+                    np.float32),
+                M, finals, init))
+        window = (wkern.DeviceWindow("time", 6.0, ring=W) if timed else
+                  wkern.DeviceWindow("events", float(eps), ring=W))
+        c0 = wkern.init_state(window, B, S, dev)
+
+        def pipe(lo, hi, c, impl, split=None):
+            return ops.cer_pipeline(
+                attrs[lo:hi], specs, class_of, None, Mt, ft, c,
+                init_mask=it, window=window,
+                event_ts=ts[lo:hi] if timed else None, start_pos=lo,
+                impl=impl, split=split)
+        full_k = pipe(0, T, c0, "fused", split)
+        check(FKERNEL.last_plan == (True, split),
+              f"phase 10: forced split {split} ran {FKERNEL.last_plan}")
+        full_p = pipe(0, T, c0, "ref")
+        m1, c1 = pipe(0, 40, c0, "fused", split)
+        m2, c2 = pipe(40, T, c1, "fused", split)
+        check(same(full_k[0], full_p[0]) and same(full_k[1], full_p[1]),
+              f"phase 10: fused_scan split={split} ≡ plain at S={S} NQ={NQ} "
+              f"W={W} timed={timed}")
+        check(same(torch.cat([m1, m2]), full_k[0]) and same(c2, full_k[1]),
+              f"phase 10: fused_scan split={split} chunked carry at S={S} "
+              f"W={W}")
+        check(float(full_k[0].max()) < EXACT_LIMIT,
+              "phase 10: counts stay below 2^24")
+        n += 1
+
     # the routers refuse before any launch
     counters = reset_launches()
     S, NQ = 6, 2
@@ -1245,6 +1349,13 @@ def phase_edges(seed: int, dev="cuda") -> None:
         refusals.append((f"unfused with {what}", lambda kw=kw: (
             ops.cer_pipeline(*pipe_args, c0, init_mask=init, epsilon=5,
                              impl="unfused", **kw))))
+    for what, kw in (("LAST", dict(latest_q=torch.ones(NQ, device=dev))),
+                     ("CONSUME", dict(consume_sq=torch.ones((NQ, S),
+                                                            device=dev))),
+                     ("a ring of 8", dict(split=9))):
+        refusals.append((f"a forced split with {what}", lambda kw=kw: (
+            ops.cer_pipeline(*pipe_args, c0, init_mask=init, epsilon=5,
+                             impl="fused", **{"split": 2, **kw}))))
     window = wkern.DeviceWindow.time(5.0, max_window_events=8)
     refusals.append(("unfused with a time window", lambda: ops.cer_pipeline(
         *pipe_args, wkern.init_state(window, 2, S, dev), init_mask=init,
@@ -1300,7 +1411,9 @@ def main() -> None:
         "plain_ms": main_res["plain_ms_per_chunk"],
         "bound_ms": main_res["bound_ms"],
         "bound_by": main_res["bound_by"],
-        "library_ms": None}, {
+        "library_ms": None,
+        "phase9_ms": packed_res["fused_scan_ms"],
+        "phase9_n_split": packed_res["fused_scan_n_split"]}, {
         "name": "arena_update", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/arena_update.cu",
         "replaces": "src/repro/kernels/arena_update.py:88",

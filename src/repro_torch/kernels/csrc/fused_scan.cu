@@ -14,18 +14,35 @@
 // dense form (at most W.S.2 useful ones, since a row of M_all[c] has at most
 // two non-zeros) against only A + NQ floats of device-memory traffic; the
 // (W, S) state itself need cross device memory only once per chunk.  So the
-// floor is the f32 arithmetic (about 67 TFLOP/s), not the 3.35 TB/s memory.
-// What the design does about it: one block per lane walks the chunk's T
-// events in order (the TPU's sequential grid axis becomes a loop inside the
-// block), so the lane's ring stays in shared memory for the whole chunk when
-// W.S.4 bytes fit, and in global memory (L2-resident) otherwise.  Each thread
-// owns ring slots w = tid, tid + blockDim.x, ..., so slot updates need no
-// synchronisation; a block reduction combines the per-query counts.  The
-// class lookup is a direct gather (the TPU kernel's one-hot matmuls avoided
-// gathers), and products skip zero run counts, which keeps the work near the
-// sparse count on real tables.  Counts are f32 integers, exact below 2^24
-// whatever the order of summation, so results equal the plain PyTorch
-// version bit for bit.  wgmma, TMA and a sparse M are left for later work.
+// floor is the f32 arithmetic (about 67 TFLOP/s), not the 3.35 TB/s memory,
+// as long as the ring stays on chip.
+// What the design does about it: the TPU's sequential grid axis becomes a
+// loop over the chunk's T events inside a block.  A lane's ring is cut into
+// n_split contiguous segments of L = ceil(W / n_split) slots (the last may
+// be shorter), one block each (grid (B, n_split)).  Ring slots are
+// independent of each other: seeding, count-window and time-window expiry
+// are per slot (tested against global slot indices, with Python's sign rule
+// via pymod) and the ovf latch is an OR, so a block owns its segment
+// outright.  Each block stages its share, W/n_split.(S|1) floats plus the
+// ts share of a time window, into shared memory for the whole chunk, and
+// writes it back once at the end; the wrapper (plan_ring in fused_scan.py)
+// picks the smallest n_split whose share fits.  The per-query count of an
+// event is the one thing the segments share: each block reduces its partial
+// sum (warp shuffles, then one value per warp), and with n_split > 1
+// thread 0 adds it to the zeroed output with atomicAdd.  Counts are f32
+// integers, exact below 2^24 whatever the order of summation, so results
+// equal the plain PyTorch version bit for bit.  LAST and CONSUME BY ANY
+// need a lane-wide decision per event (the youngest positive slot; clearing
+// states after any query emits), so they run with n_split = 1: their ring
+// in shared memory when it fits, else in global memory (L2-resident), read
+// and written per event.  Within a block each thread owns slots w = tid,
+// tid + blockDim.x, ..., so slot updates need no synchronisation.  Before
+// its events the block evaluates the predicates of a tile of up to kTile
+// events, one event per thread, into a shared class table (segment 0 also
+// writes the trace).  The class lookup is a direct gather (the TPU kernel's
+// one-hot matmuls avoided gathers), and products skip zero run counts,
+// which keeps the work near the sparse count on real tables.  wgmma, TMA,
+// thread-block clusters and a sparse M are left for later work.
 //
 // Build: see repro_torch/kernels/build.py (nvcc -gencode
 // arch=compute_90a,code=sm_90a, linked with the other kernels into one
@@ -42,6 +59,8 @@ constexpr int kMaxBits = 14;    // predicates per query (2^14 class_of rows)
 constexpr int kMaxQ = 8;        // queries per launch
 constexpr int kMaxThreads = 256;
 constexpr int kMaxWarps = kMaxThreads / 32;
+constexpr int kTile = 256;      // events whose classes are tabled at once
+constexpr int kMaxSplit = 65535;  // grid y
 
 struct Specs {
   int k;
@@ -64,12 +83,13 @@ struct Args {
   const float* event_ts;    // (T, B) (time windows)
   const int* start;         // (B,)
   const int* valid;         // (B,)
-  float* matches;           // (T, B, NQ)
+  float* matches;           // (T, B, NQ); zeroed by the caller if n_split > 1
   int* trace;               // (T, B) or null
   int T, B, A, S, NQ, W, epsilon;
   float time_size;
   int timed;
   int use_smem;
+  int n_split;              // blocks per lane (grid y)
 };
 
 template <int MAXS>
@@ -85,10 +105,18 @@ fused_scan_kernel(const Args a, const Specs sp) {
   __shared__ float rSum[kMaxWarps][kMaxQ];
   __shared__ int rAge[kMaxWarps][kMaxQ];
   __shared__ float rVal[kMaxWarps][kMaxQ];
+  __shared__ int sCls[kTile];           // the tile's classes
+  __shared__ float sTs[kTile];          // the tile's timestamps
 
-  const int b = blockIdx.x, tid = threadIdx.x, nth = blockDim.x;
+  const int b = blockIdx.x, seg = blockIdx.y;
+  const int tid = threadIdx.x, nth = blockDim.x;
   const int S = a.S, W = a.W, NQ = a.NQ, B = a.B;
   const int warp = tid >> 5, lane = tid & 31, nwarps = nth >> 5;
+  const bool split = a.n_split > 1;
+  // this block's segment of the lane's ring: global slots [w0, w0 + n)
+  const int L = (W + a.n_split - 1) / a.n_split;
+  const int w0 = seg * L;
+  const int n = min(L, W - w0);
 
   for (int i = tid; i < MAXS * MAXS; i += nth) sM[i] = 0.f;
   for (int i = tid; i < kMaxQ * MAXS; i += nth) {
@@ -104,168 +132,190 @@ fused_scan_kernel(const Args a, const Specs sp) {
   for (int i = tid; i < kMaxQ; i += nth)
     sLatest[i] = (a.latest && i < NQ) ? a.latest[i] : 0.f;
 
-  // The lane's ring: staged into shared memory, or used in place.
-  float* cg = a.c + static_cast<size_t>(b) * W * S;
-  float* tsg = a.timed ? a.ts_ring + static_cast<size_t>(b) * W : nullptr;
+  // The segment: staged into shared memory, or used in place.
+  float* cg = a.c + (static_cast<size_t>(b) * W + w0) * S;
+  float* tsg =
+      a.timed ? a.ts_ring + static_cast<size_t>(b) * W + w0 : nullptr;
   float* ring = cg;
   float* tsr = tsg;
   int rs = S;  // ring row stride in floats
   if (a.use_smem) {
     rs = S | 1;  // odd stride: neighbouring slots hit different banks
     ring = ring_smem;
-    tsr = a.timed ? ring_smem + static_cast<size_t>(W) * rs : nullptr;
-    for (int i = tid; i < W * S; i += nth) ring[(i / S) * rs + i % S] = cg[i];
+    tsr = a.timed ? ring_smem + static_cast<size_t>(n) * rs : nullptr;
+    for (int i = tid; i < n * S; i += nth) ring[(i / S) * rs + i % S] = cg[i];
     if (tsr)
-      for (int w = tid; w < W; w += nth) tsr[w] = tsg[w];
+      for (int w = tid; w < n; w += nth) tsr[w] = tsg[w];
   }
-  __syncthreads();
 
   const int start = a.start[b];
   const int valid = a.valid[b];
-  for (int t = 0; t < a.T; ++t) {
-    const size_t tb = static_cast<size_t>(t) * B + b;
-    const float* row = a.attrs + tb * a.A;
-    int bits = 0;
-    for (int i = 0; i < sp.k; ++i)
-      bits |= static_cast<int>(compare(sp.op[i], row[sp.col[i]], sp.thr[i]))
-              << i;
-    const int cls = a.class_of[bits];
-    if (tid == 0 && a.trace) a.trace[tb] = cls;
-    if (t >= valid) {  // dead step: state untouched, zero counts
-      if (tid < NQ) a.matches[tb * NQ + tid] = 0.f;
-      continue;
+  for (int t0 = 0; t0 < a.T; t0 += kTile) {
+    const int tn = min(kTile, a.T - t0);
+    __syncthreads();  // staging done; the previous tile's table is read
+    // the tile's predicates and classes, one event per thread
+    for (int i = tid; i < tn; i += nth) {
+      const size_t tb = static_cast<size_t>(t0 + i) * B + b;
+      const float* row = a.attrs + tb * a.A;
+      int bits = 0;
+      for (int j = 0; j < sp.k; ++j)
+        bits |= static_cast<int>(compare(sp.op[j], row[sp.col[j]], sp.thr[j]))
+                << j;
+      const int cls = a.class_of[bits];
+      sCls[i] = cls;
+      if (seg == 0 && a.trace) a.trace[tb] = cls;
+      if (a.timed) sTs[i] = a.event_ts[tb];
     }
-    const float* Mg = a.m_all + static_cast<size_t>(cls) * S * S;
-    for (int i = tid; i < S * S; i += nth) sM[(i / S) * MAXS + i % S] = Mg[i];
-    float ts_t = 0.f, bound = 0.f;
-    if (a.timed) {
-      ts_t = a.event_ts[tb];
-      bound = ts_t - a.time_size;  // f32, as the plain version computes it
-    }
-    const long long j = static_cast<long long>(start) + t;
-    const int jm = pymod(j, W);
-    const int em = pymod(j - a.epsilon - 1, W);
-    __syncthreads();  // sM ready
+    __syncthreads();  // table ready
 
-    float psum[kMaxQ], pval[kMaxQ];
-    int page[kMaxQ];
-#pragma unroll
-    for (int q = 0; q < kMaxQ; ++q) {
-      psum[q] = 0.f;
-      pval[q] = 0.f;
-      page[q] = INT_MAX;
-    }
-    bool over = false;
-    for (int w = tid; w < W; w += nth) {
-      float* cw = ring + static_cast<size_t>(w) * rs;
-      const bool seed = w == jm;
-      bool clear;
+    for (int i = 0; i < tn; ++i) {
+      const int t = t0 + i;
+      const size_t tb = static_cast<size_t>(t) * B + b;
+      if (t >= valid) {  // dead step: state untouched, zero counts
+        if (!split && tid < NQ) a.matches[tb * NQ + tid] = 0.f;
+        continue;
+      }
+      const float* Mg = a.m_all + static_cast<size_t>(sCls[i]) * S * S;
+      for (int x = tid; x < S * S; x += nth)
+        sM[(x / S) * MAXS + x % S] = Mg[x];
+      float ts_t = 0.f, bound = 0.f;
       if (a.timed) {
-        const bool expire = tsr[w] < bound;
-        over |= seed && !expire;
-        clear = seed || expire;
-        if (seed) tsr[w] = ts_t;
-      } else {
-        clear = seed || w == em;
+        ts_t = sTs[i];
+        bound = ts_t - a.time_size;  // f32, as the plain version computes it
       }
-      float cin[MAXS], cout[MAXS];
+      const long long j = static_cast<long long>(start) + t;
+      const int jm = pymod(j, W);
+      const int em = pymod(j - a.epsilon - 1, W);
+      __syncthreads();  // sM ready
+
+      float psum[kMaxQ], pval[kMaxQ];
+      int page[kMaxQ];
 #pragma unroll
-      for (int s = 0; s < MAXS; ++s) {
-        cin[s] = (s < S && !clear) ? cw[s] : 0.f;
-        if (seed) cin[s] += sInit[s];
-        cout[s] = 0.f;
+      for (int q = 0; q < kMaxQ; ++q) {
+        psum[q] = 0.f;
+        pval[q] = 0.f;
+        page[q] = INT_MAX;
       }
+      bool over = false;
+      for (int wl = tid; wl < n; wl += nth) {
+        const int w = w0 + wl;
+        float* cw = ring + static_cast<size_t>(wl) * rs;
+        const bool seed = w == jm;
+        bool clear;
+        if (a.timed) {
+          const bool expire = tsr[wl] < bound;
+          over |= seed && !expire;
+          clear = seed || expire;
+          if (seed) tsr[wl] = ts_t;
+        } else {
+          clear = seed || w == em;
+        }
+        float cin[MAXS], cout[MAXS];
 #pragma unroll
-      for (int s = 0; s < MAXS; ++s) {
-        const float v = cin[s];
-        if (v != 0.f) {
+        for (int s = 0; s < MAXS; ++s) {
+          cin[s] = (s < S && !clear) ? cw[s] : 0.f;
+          if (seed) cin[s] += sInit[s];
+          cout[s] = 0.f;
+        }
 #pragma unroll
-          for (int u = 0; u < MAXS; ++u) cout[u] += v * sM[s * MAXS + u];
+        for (int s = 0; s < MAXS; ++s) {
+          const float v = cin[s];
+          if (v != 0.f) {
+#pragma unroll
+            for (int u = 0; u < MAXS; ++u) cout[u] += v * sM[s * MAXS + u];
+          }
+        }
+#pragma unroll
+        for (int s = 0; s < MAXS; ++s)
+          if (s < S) cw[s] = cout[s];
+        int age = jm - w;
+        if (age < 0) age += W;
+#pragma unroll
+        for (int q = 0; q < kMaxQ; ++q) {
+          if (q < NQ) {
+            float v = 0.f;
+#pragma unroll
+            for (int u = 0; u < MAXS; ++u) v += cout[u] * sF[q * MAXS + u];
+            psum[q] += v;
+            if (v > 0.f && age < page[q]) {
+              page[q] = age;
+              pval[q] = v;
+            }
+          }
         }
       }
-#pragma unroll
-      for (int s = 0; s < MAXS; ++s)
-        if (s < S) cw[s] = cout[s];
-      int age = jm - w;
-      if (age < 0) age += W;
+      if (over) a.ovf[b] = 1;  // any segment may latch it
+
 #pragma unroll
       for (int q = 0; q < kMaxQ; ++q) {
         if (q < NQ) {
-          float v = 0.f;
-#pragma unroll
-          for (int u = 0; u < MAXS; ++u) v += cout[u] * sF[q * MAXS + u];
-          psum[q] += v;
-          if (v > 0.f && age < page[q]) {
-            page[q] = age;
-            pval[q] = v;
+          float sum = psum[q], val = pval[q];
+          int age = page[q];
+          for (int off = 16; off > 0; off >>= 1) {
+            sum += __shfl_down_sync(0xffffffffu, sum, off);
+            if (a.latest) {
+              const int age2 = __shfl_down_sync(0xffffffffu, age, off);
+              const float val2 = __shfl_down_sync(0xffffffffu, val, off);
+              if (age2 < age) {
+                age = age2;
+                val = val2;
+              }
+            }
+          }
+          if (lane == 0) {
+            rSum[warp][q] = sum;
+            rAge[warp][q] = age;
+            rVal[warp][q] = val;
           }
         }
       }
-    }
-    if (over) a.ovf[b] = 1;
+      __syncthreads();  // per-warp partials ready; every read of sM is done
 
-#pragma unroll
-    for (int q = 0; q < kMaxQ; ++q) {
-      if (q < NQ) {
-        float sum = psum[q], val = pval[q];
-        int age = page[q];
-        for (int off = 16; off > 0; off >>= 1) {
-          sum += __shfl_down_sync(0xffffffffu, sum, off);
-          const int age2 = __shfl_down_sync(0xffffffffu, age, off);
-          const float val2 = __shfl_down_sync(0xffffffffu, val, off);
-          if (age2 < age) {
-            age = age2;
-            val = val2;
+      if (tid == 0) {
+        float trig[kMaxQ];
+        for (int q = 0; q < NQ; ++q) {
+          float sum = 0.f, val = 0.f;
+          int age = INT_MAX;
+          for (int wp = 0; wp < nwarps; ++wp) {
+            sum += rSum[wp][q];
+            if (rAge[wp][q] < age) {
+              age = rAge[wp][q];
+              val = rVal[wp][q];
+            }
+          }
+          if (split) {  // this segment's share of a sum; no LAST here
+            if (sum != 0.f) atomicAdd(&a.matches[tb * NQ + q], sum);
+            continue;
+          }
+          const float m =
+              sLatest[q] > 0.f ? (age < INT_MAX ? val : 0.f) : sum;
+          a.matches[tb * NQ + q] = m;
+          trig[q] = m > 0.f ? 1.f : 0.f;
+        }
+        if (a.consume) {
+          for (int s = 0; s < S; ++s) {
+            float hit = 0.f;
+            for (int q = 0; q < NQ; ++q) hit += trig[q] * sCons[q * MAXS + s];
+            sClr[s] = hit > 0.f ? 1.f : 0.f;
           }
         }
-        if (lane == 0) {
-          rSum[warp][q] = sum;
-          rAge[warp][q] = age;
-          rVal[warp][q] = val;
-        }
-      }
-    }
-    __syncthreads();  // per-warp partials ready; every read of sM is done
-
-    if (tid == 0) {
-      float trig[kMaxQ];
-      for (int q = 0; q < NQ; ++q) {
-        float sum = 0.f, val = 0.f;
-        int age = INT_MAX;
-        for (int wp = 0; wp < nwarps; ++wp) {
-          sum += rSum[wp][q];
-          if (rAge[wp][q] < age) {
-            age = rAge[wp][q];
-            val = rVal[wp][q];
-          }
-        }
-        const float m = sLatest[q] > 0.f ? (age < INT_MAX ? val : 0.f) : sum;
-        a.matches[tb * NQ + q] = m;
-        trig[q] = m > 0.f ? 1.f : 0.f;
       }
       if (a.consume) {
-        for (int s = 0; s < S; ++s) {
-          float hit = 0.f;
-          for (int q = 0; q < NQ; ++q) hit += trig[q] * sCons[q * MAXS + s];
-          sClr[s] = hit > 0.f ? 1.f : 0.f;
+        __syncthreads();  // sClr ready: counts of all slots were reduced first
+        for (int wl = tid; wl < n; wl += nth) {
+          float* cw = ring + static_cast<size_t>(wl) * rs;
+          for (int s = 0; s < S; ++s)
+            if (sClr[s] != 0.f) cw[s] = 0.f;
         }
-      }
-    }
-    if (a.consume) {
-      __syncthreads();  // sClr ready: counts of all slots were reduced first
-      for (int w = tid; w < W; w += nth) {
-        float* cw = ring + static_cast<size_t>(w) * rs;
-        for (int s = 0; s < S; ++s)
-          if (sClr[s] != 0.f) cw[s] = 0.f;
       }
     }
   }
 
   if (a.use_smem) {
     __syncthreads();
-    for (int i = tid; i < W * S; i += nth) cg[i] = ring[(i / S) * rs + i % S];
+    for (int i = tid; i < n * S; i += nth) cg[i] = ring[(i / S) * rs + i % S];
     if (tsr)
-      for (int w = tid; w < W; w += nth) tsg[w] = tsr[w];
+      for (int w = tid; w < n; w += nth) tsg[w] = tsr[w];
   }
 }
 
@@ -291,7 +341,8 @@ cudaError_t launch(const Args& a, const Specs& sp, int threads, size_t smem,
       fused_scan_kernel<MAXS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  fused_scan_kernel<MAXS><<<a.B, threads, smem, stream>>>(a, sp);
+  const dim3 grid(a.B, a.n_split);
+  fused_scan_kernel<MAXS><<<grid, threads, smem, stream>>>(a, sp);
   return cudaGetLastError();
 }
 
@@ -308,6 +359,8 @@ int fused_scan_max_dynamic_smem(int max_s, int* out) {
   return cudaErrorInvalidValue;
 }
 
+// One chunk over grid (B, n_split).  With n_split > 1, `matches` must be
+// zeroed and the call may take neither LAST nor CONSUME.
 int fused_scan_launch(const float* attrs, const int* spec_col,
                       const int* spec_op, const float* spec_thr, int k,
                       const int* class_of, const float* m_all,
@@ -318,9 +371,11 @@ int fused_scan_launch(const float* attrs, const int* spec_col,
                       const int* valid, float* matches, int* trace, int T,
                       int B, int A, int S, int NQ, int W, int epsilon,
                       float time_size, int timed, int max_s, int threads,
-                      int use_smem, void* stream) {
+                      int use_smem, int n_split, void* stream) {
   if (k < 0 || k > kMaxBits || NQ < 1 || NQ > kMaxQ || S < 1 || S > max_s ||
-      threads < 32 || threads > kMaxThreads || threads % 32 != 0 || B < 1)
+      threads < 32 || threads > kMaxThreads || threads % 32 != 0 || B < 1 ||
+      W < 1 || n_split < 1 || n_split > W || n_split > kMaxSplit ||
+      (n_split > 1 && (latest || consume)))
     return cudaErrorInvalidValue;
   Specs sp;
   sp.k = k;
@@ -331,11 +386,10 @@ int fused_scan_launch(const float* attrs, const int* spec_col,
   }
   Args a{attrs, class_of, m_all, finals, init, latest, consume, c, ts_ring,
          ovf, event_ts, start, valid, matches, trace, T, B, A, S, NQ, W,
-         epsilon, time_size, timed, use_smem};
+         epsilon, time_size, timed, use_smem, n_split};
+  const size_t L = (static_cast<size_t>(W) + n_split - 1) / n_split;
   const size_t smem =
-      use_smem ? (static_cast<size_t>(W) * (S | 1) + (timed ? W : 0)) *
-                     sizeof(float)
-               : 0;
+      use_smem ? (L * (S | 1) + (timed ? L : 0)) * sizeof(float) : 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (max_s == 8) return launch<8>(a, sp, threads, smem, st);
   if (max_s == 16) return launch<16>(a, sp, threads, smem, st);

@@ -6,6 +6,14 @@ port's one kernel library (:mod:`repro_torch.kernels.build`), built with
 ``nvcc`` for ``sm_90a`` at first use and bound through ``ctypes``.  Nothing
 is built or loaded when this module is imported.
 
+Where a lane's ring lives is chosen by :func:`plan_ring`, a pure function of
+the geometry: in shared memory, whole, when it fits one block; else split
+over ``n_split`` blocks per lane (grid ``(B, n_split)``), each holding a
+contiguous share of the slots in shared memory and adding its partial
+per-query counts with ``atomicAdd``; LAST and CONSUME BY ANY, which need a
+lane-wide decision per event, keep one block per lane and a ring that does
+not fit stays in global memory.  The results are the same bit for bit.
+
 Use :func:`repro_torch.kernels.ops.cer_pipeline`, which routes CUDA tensors
 here and CPU tensors to the plain version in :mod:`repro_torch.kernels.ref`.
 """
@@ -23,6 +31,7 @@ MAX_QUERIES = 8     # queries per launch
 MAX_THREADS = 256
 _STATE_BUCKETS = (8, 16, 32)  # det-state template instantiations
 MAX_STATES = _STATE_BUCKETS[-1]
+MAX_SPLIT = 65535   # blocks per lane (the grid's y extent)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,11 +44,13 @@ def _ptr(t: Optional[torch.Tensor]):
 class FusedScanKernel:
     """The kernel's binding and its launch counter.
 
-    ``launches`` counts kernel launches (one per :meth:`__call__`).
+    ``launches`` counts kernel launches (one per :meth:`__call__`);
+    ``last_plan`` is the ``(use_smem, n_split)`` of the latest launch.
     """
 
     def __init__(self):
         self.launches = 0
+        self.last_plan = None
         self._lib = None
         self._smem_limit = {}
 
@@ -52,7 +63,7 @@ class FusedScanKernel:
         lib.fused_scan_launch.restype = _I
         lib.fused_scan_launch.argtypes = (
             [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-             _P, _P, _P] + [_I] * 7 + [ctypes.c_float] + [_I] * 4 + [_P])
+             _P, _P, _P] + [_I] * 7 + [ctypes.c_float] + [_I] * 5 + [_P])
         lib.fused_scan_max_dynamic_smem.restype = _I
         lib.fused_scan_max_dynamic_smem.argtypes = [_I, ctypes.POINTER(_I)]
         self._lib = lib
@@ -82,10 +93,11 @@ class FusedScanKernel:
                  ovf: Optional[torch.Tensor] = None,
                  latest_q: Optional[torch.Tensor] = None,
                  consume_sq: Optional[torch.Tensor] = None,
-                 return_trace: bool = False):
+                 return_trace: bool = False, split: Optional[int] = None):
         """Launch on one chunk.  Updates ``c`` (and ``ts_ring``/``ovf`` for
         time windows) in place; returns ``matches (T, B, NQ)`` f32 and, with
-        ``return_trace``, the ``(T, B)`` int32 class trace.
+        ``return_trace``, the ``(T, B)`` int32 class trace.  ``split``
+        forces the number of blocks per lane (:func:`plan_ring`).
 
         attrs (T, B, A) f32 | class_of (2^k,) int32 | m_all (C, S, S) f32 |
         finals_q (NQ, S) f32 | init_mask (S,) f32 | c (B, W, S) f32 |
@@ -139,13 +151,17 @@ class FusedScanKernel:
                                  "contiguous")
 
         max_s = next(m for m in _STATE_BUCKETS if S <= m)
-        threads = min(MAX_THREADS, max(32, -(-W // 32) * 32))
-        ring_bytes = (W * (S | 1) + (W if timed else 0)) * 4
         with torch.cuda.device(dev):
             lib = self.library()
-            use_smem = ring_bytes <= self.smem_limit(max_s)
-            matches = torch.empty((T, B, NQ), dtype=torch.float32,
-                                  device=dev)
+            use_smem, n_split = plan_ring(
+                W, S, timed, self.smem_limit(max_s),
+                latest=latest_q is not None, consume=consume_sq is not None,
+                split=split)
+            seg = -(-W // n_split)
+            threads = min(MAX_THREADS, max(32, -(-seg // 32) * 32))
+            # split segments add their partial counts into zeros
+            matches = (torch.zeros if n_split > 1 else torch.empty)(
+                (T, B, NQ), dtype=torch.float32, device=dev)
             trace = (torch.empty((T, B), dtype=torch.int32, device=dev)
                      if return_trace else None)
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -160,10 +176,11 @@ class FusedScanKernel:
                 _ptr(event_ts), start.data_ptr(), valid.data_ptr(),
                 matches.data_ptr(), _ptr(trace), T, B, A, S, NQ, W,
                 int(epsilon), ctypes.c_float(time_size if timed else 0.0),
-                int(timed), max_s, threads, int(use_smem), stream)
+                int(timed), max_s, threads, int(use_smem), n_split, stream)
         if err != 0:
             raise RuntimeError(f"fused_scan launch failed: CUDA error {err}")
         self.launches += 1
+        self.last_plan = (use_smem, n_split)
         return (matches, trace) if return_trace else matches
 
 
@@ -187,6 +204,57 @@ def check_launchable(*, T: int, B: int, S: int, NQ: int, k: int, W: int,
     if W * S >= 2 ** 31:
         raise ValueError(f"fused_scan ring W·S must stay below 2^31, got "
                          f"{W}·{S}")
+
+
+def ring_share_bytes(slots: int, S: int, timed: bool) -> int:
+    """Shared memory of ``slots`` ring slots: rows of ``S | 1`` floats (an
+    odd stride spreads neighbouring slots over the banks), plus one
+    timestamp per slot for a time window."""
+    return slots * ((S | 1) + int(timed)) * 4
+
+
+def segments(W: int, n_split: int) -> list:
+    """The ``[w0, w1)`` slot ranges of the ``n_split`` blocks of a lane, as
+    the kernel cuts them: ``ceil(W / n_split)`` slots each, the last
+    shorter."""
+    L = -(-W // n_split)
+    return [(y * L, min(W, (y + 1) * L)) for y in range(n_split)]
+
+
+def plan_ring(W: int, S: int, timed: bool, smem_limit: int, *,
+              latest: bool, consume: bool,
+              split: Optional[int] = None) -> Tuple[bool, int]:
+    """Where a lane's ring lives during a launch: ``(use_smem, n_split)``.
+
+    A ring whose ``W`` slots fit ``smem_limit`` bytes stays whole in one
+    block's shared memory (``(True, 1)``).  Otherwise LAST or CONSUME
+    (``latest``/``consume``), which decide per event over the whole lane,
+    keep one block in global memory (``(False, 1)``), and every other call
+    takes the smallest ``n_split`` whose share fits.  ``split`` forces the
+    number of blocks (the card tests and ``chip_smoke.py`` use it at small
+    shapes); it is trimmed so no block is left without slots, and its
+    share lies in global memory if it does not fit.  Raises ``ValueError``
+    for a split with LAST or CONSUME, or outside ``1..W``.
+    """
+    if split is not None:
+        check_split(split, W, latest=latest, consume=consume)
+        L = -(-W // split)
+        return ring_share_bytes(L, S, timed) <= smem_limit, -(-W // L)
+    if ring_share_bytes(W, S, timed) <= smem_limit:
+        return True, 1
+    if latest or consume:
+        return False, 1
+    return True, -(-W // (smem_limit // ring_share_bytes(1, S, timed)))
+
+
+def check_split(split: int, W: int, *, latest: bool, consume: bool) -> None:
+    """Raise ``ValueError`` for a forced split the kernel cannot run."""
+    if latest or consume:
+        raise ValueError("split= runs the sum-only mode: LAST and CONSUME "
+                         "BY ANY keep one block per lane")
+    if not 1 <= split <= min(W, MAX_SPLIT):
+        raise ValueError(f"split must lie in 1..{min(W, MAX_SPLIT)} (ring "
+                         f"W={W}), got {split}")
 
 
 #: the process's kernel: one library load serves every engine

@@ -29,7 +29,7 @@ from . import ref
 from .arena_update import KERNEL as ARENA_KERNEL
 from .bitvector import KERNEL as BITVECTOR_KERNEL
 from .bitvector import check_specs
-from .fused_scan import KERNEL
+from .fused_scan import KERNEL, check_split
 from .window import DeviceWindow
 
 IMPLS = ("fused", "unfused", "ref")
@@ -177,7 +177,8 @@ def cer_pipeline(attrs: torch.Tensor,
                  return_trace: bool = False,
                  latest_q: Optional[torch.Tensor] = None,
                  consume_sq: Optional[torch.Tensor] = None,
-                 inplace: bool = False) -> Tuple:
+                 inplace: bool = False,
+                 split: Optional[int] = None) -> Tuple:
     """Device CER pipeline: raw attributes → per-position match counts.
 
     attrs (T, B, A) f32 | class_of (2^k,) int32 | class_ind (≥2^k, C) f32
@@ -201,10 +202,18 @@ def cer_pipeline(attrs: torch.Tensor,
     streaming engine's preallocated buffers); otherwise ``c0`` is left
     untouched.
 
-    ``impl`` routes fused / unfused / ref (module docstring).
+    ``impl`` routes fused / unfused / ref (module docstring).  ``split``
+    forces the fused kernel's blocks per lane
+    (:func:`repro_torch.kernels.fused_scan.plan_ring`); it changes no
+    result, so the other routes only check it: every route raises
+    ``ValueError`` for a split with LAST or CONSUME or outside ``1..W``.
     """
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if split is not None:
+        W = (c0["C"] if isinstance(c0, dict) else c0).shape[1]
+        check_split(split, W, latest=latest_q is not None,
+                    consume=consume_sq is not None)
     if window is None:
         if epsilon is None:
             raise ValueError("cer_pipeline needs epsilon= or window=")
@@ -257,7 +266,7 @@ def cer_pipeline(attrs: torch.Tensor,
     res = KERNEL(attrs.contiguous(), specs, class_of, m_all, finals_q,
                  init_mask, c_ring, start, valid, epsilon=epsilon,
                  latest_q=latest_q, consume_sq=consume_sq,
-                 return_trace=return_trace, **time_kw)
+                 return_trace=return_trace, split=split, **time_kw)
     if return_trace:
         matches, trace = res
         return matches, state, trace

@@ -66,7 +66,8 @@ CASES = [(5, 1, 7, False), (9, 2, 31, False), (26, 3, 100, False),
 
 
 @pytest.mark.parametrize("S,NQ,win,timed", CASES)
-@pytest.mark.parametrize("latest,consume", [(False, False), (True, True)])
+@pytest.mark.parametrize("latest,consume", [(False, False), (True, True),
+                                            (True, False), (False, True)])
 def test_kernel_matches_plain_version(dev, S, NQ, win, timed, latest,
                                       consume):
     rng = np.random.default_rng(S * 31 + NQ)
@@ -105,10 +106,112 @@ def test_kernel_matches_plain_version(dev, S, NQ, win, timed, latest,
     got = ops.cer_pipeline(*args, c0, impl="fused", **kw)
     torch.cuda.synchronize()
     assert fused_scan.KERNEL.launches == launches + 1
+    # the 4000-slot ring does not fit one block: a sum-only call splits
+    # it over two blocks, LAST or CONSUME reads it in global memory
+    if S == 15:
+        want_plan = (False, 1) if latest or consume else (True, 2)
+    else:
+        want_plan = (True, 1)
+    assert fused_scan.KERNEL.last_plan == want_plan
     want = ops.cer_pipeline(*args, c0, impl="ref", **kw)
     for g, w in zip(got, want):
         assert equal(g, w)
     assert float(got[0].max()) < 2 ** 24
+
+
+# (S, NQ, W, eps): rings that no split of 2, 3 or 5 divides, NQ 1 and 8,
+# the three state builds; eps None is a time window of rate bound W
+SPLIT_CASES = [(5, 1, 31, 30), (9, 8, 23, 9), (26, 3, 17, 16),
+               (7, 1, 37, None), (13, 8, 29, None)]
+
+
+@pytest.mark.parametrize("S,NQ,W,eps", SPLIT_CASES)
+@pytest.mark.parametrize("split", [2, 3, 5])
+def test_forced_split_matches_plain_version(dev, S, NQ, W, eps, split):
+    """Each block keeps a share of the ring: counts, trace, ring, ts ring
+    and ovf equal the plain version exactly, with the seed and expiry slots
+    on the first and last slot of every segment."""
+    rng = np.random.default_rng(S * 13 + NQ + split)
+    T, A, k, C = 64, 3, 5, 6
+    timed = eps is None
+    specs, class_of, M, finals, init = random_tables(rng, S, C, A, k, NQ)
+    use_smem, n = fused_scan.plan_ring(W, S, timed, 10 ** 6, latest=False,
+                                       consume=False, split=split)
+    segs = fused_scan.segments(W, n)
+    # lane starts: start 0; each segment's first and last slot as the seed
+    # slot (jm) at t = 0, and as the expiry slot (em = jm - eps - 1)
+    starts = [0]
+    for a, b in segs:
+        for w in (a, b - 1):
+            starts += [w, w + W * 7919]
+            if not timed:
+                starts.append(w + eps + 1)
+    B = len(starts) + 6
+    start = np.concatenate([starts, rng.integers(0, 10 ** 6, 6)])
+    valid = rng.integers(0, T + 1, B)
+    valid[:len(starts)] = T
+    valid[-2:] = 0                                   # dead lanes
+    attrs = rng.normal(size=(T, B, A)).astype(np.float32)
+    attrs[rng.random((T, B, A)) < 0.05] = np.nan
+    ts = np.cumsum(rng.integers(0, 3, (T, B)), axis=0).astype(np.float32)
+    if timed:
+        # lane 1 starts on the last segment's first slot and its events
+        # share one timestamp: nothing expires, so the first overwrite, at
+        # t = W, latches ovf in that segment alone
+        start[1] = segs[-1][0]
+        ts[:, 1] = 5.0
+        window = wkern.DeviceWindow("time", 6.0, ring=W)
+    else:
+        window = wkern.DeviceWindow("events", float(eps), ring=W)
+    c0 = wkern.init_state(window, B, S, dev)
+    ring = c0["C"] if timed else c0
+    ring.copy_(torch.from_numpy(
+        (rng.random(ring.shape) < 0.05).astype(np.float32)))
+    args = (torch.from_numpy(attrs).to(dev), specs,
+            torch.from_numpy(class_of).to(dev), None,
+            torch.from_numpy(M).to(dev), torch.from_numpy(finals).to(dev))
+    kw = dict(init_mask=torch.from_numpy(init).to(dev), window=window,
+              event_ts=torch.from_numpy(ts).to(dev) if timed else None,
+              start_pos=torch.from_numpy(start).to(dev),
+              valid_counts=torch.from_numpy(valid).to(dev),
+              return_trace=True)
+    launches = fused_scan.KERNEL.launches
+    got = ops.cer_pipeline(*args, c0, impl="fused", split=split, **kw)
+    torch.cuda.synchronize()
+    assert fused_scan.KERNEL.launches == launches + 1
+    assert fused_scan.KERNEL.last_plan == (True, n) and n > 1
+    want = ops.cer_pipeline(*args, c0, impl="ref", **kw)
+    for g, w in zip(got, want):
+        assert equal(g, w)
+    if timed:
+        assert bool(got[1]["ovf"][1])
+    assert float(got[0][:, -2:].abs().max()) == 0.0   # dead lanes emit 0
+    assert float(got[0].max()) > 0 and float(got[0].max()) < 2 ** 24
+
+
+@pytest.mark.parametrize("split", [1, 2])
+def test_forced_split_in_global_memory_matches_plain_version(dev, split):
+    """A forced split whose share does not fit shared memory (480 KB a
+    lane) reads its segment of the ring in global memory."""
+    rng = np.random.default_rng(split)
+    S, NQ, W, eps, B, T, A, k, C = 15, 2, 8000, 7990, 9, 32, 3, 5, 6
+    specs, class_of, M, finals, init = random_tables(rng, S, C, A, k, NQ)
+    c0 = torch.from_numpy((rng.random((B, W, S)) < 0.01).astype(
+        np.float32)).to(dev)
+    args = (torch.from_numpy(rng.normal(size=(T, B, A)).astype(
+                np.float32)).to(dev), specs,
+            torch.from_numpy(class_of).to(dev), None,
+            torch.from_numpy(M).to(dev), torch.from_numpy(finals).to(dev),
+            c0)
+    kw = dict(init_mask=torch.from_numpy(init).to(dev), epsilon=eps,
+              start_pos=torch.from_numpy(rng.integers(0, 10 ** 6, B)).to(
+                  dev))
+    got = ops.cer_pipeline(*args, impl="fused", split=split, **kw)
+    torch.cuda.synchronize()
+    assert fused_scan.KERNEL.last_plan == (False, split)
+    want = ops.cer_pipeline(*args, impl="ref", **kw)
+    for g, w in zip(got, want):
+        assert equal(g, w)
 
 
 def test_streaming_engine_on_card(dev):
@@ -147,6 +250,24 @@ def test_router_raises_on_what_the_kernel_refuses(dev):
             torch.from_numpy(M).to(dev), torch.from_numpy(finals).to(dev),
             torch.zeros((B, 8, S), device=dev),
             init_mask=torch.from_numpy(init).to(dev), epsilon=3)
+    # a forced split with LAST or CONSUME, or past the ring, launches nothing
+    S, NQ = 6, 2
+    specs, class_of, M, finals, init = random_tables(rng, S, 3, 2, 2, NQ)
+    launches = fused_scan.KERNEL.launches
+    for kw, reason in ((dict(latest_q=torch.ones(NQ, device=dev)), "LAST"),
+                       (dict(consume_sq=torch.ones((NQ, S), device=dev)),
+                        "CONSUME"),
+                       (dict(split=9), "1..8")):
+        with pytest.raises(ValueError, match=reason):
+            ops.cer_pipeline(
+                torch.zeros((T, B, 2), device=dev), specs,
+                torch.from_numpy(class_of).to(dev), None,
+                torch.from_numpy(M).to(dev),
+                torch.from_numpy(finals).to(dev),
+                torch.zeros((B, 8, S), device=dev),
+                init_mask=torch.from_numpy(init).to(dev), epsilon=3,
+                **{"split": 2, **kw})
+    assert fused_scan.KERNEL.launches == launches
 
 
 # ---------------------------------------------------------------------------
