@@ -43,17 +43,27 @@ then runs these phases, each printing one JSON line:
    form; each kernel's time, bound and plain time;
 9. the packed ``MultiQueryEngine``: four standing queries of the Fig. 8
    shape (Ŝ = 28, k = 9, 512 joint classes, ring 3208, 372 KB a lane,
-   368 MB in all), 1024 lanes, 8 chunks through ``impl="fused"`` (the
-   ring split over ``n_split`` ≥ 2 blocks per lane in shared memory),
-   ``"unfused"`` (cea_scan_multi, ring in global memory) and the plain
-   version; each query ≡ its closed form on 8 lanes; the fused kernel's
-   ``n_split``, its time and the times of forced splits of 2, 4 and 8,
-   each ≡ plain; then the packed tECS arena at a window of 300 events,
-   16 lanes: store ≡ plain, lane 0 ≡ the host ``Engine`` per query;
+   368 MB in all), 1024 lanes, 8 chunks through ``impl="fused"`` and
+   ``"unfused"`` (each kernel's ring split over ``n_split`` ≥ 2 blocks
+   per lane in shared memory) and the plain version; each query ≡ its
+   closed form on 8 lanes; both kernels' ``n_split`` and times, with
+   forced splits (fused 2, 4, 8; cea_scan_multi 2, 4), each ≡ plain; then
+   the packed tECS arena at a window of 300 events, 16 lanes: store ≡
+   plain, lane 0 ≡ the host ``Engine`` per query;
 10. edge shapes of the kernels against their plain versions (state
-    buckets, rings of exactly ε+1, start 0 and a chunked carry, NaN
-    attributes; forced splits of the fused kernel at those shapes, 28
-    states and time windows) and the routers' refusals.
+    buckets, the wide build past 32 states, query groups past 8, rings of
+    exactly ε+1, start 0 and a chunked carry, NaN attributes; forced
+    splits of all three scans at those shapes, trimmed splits, time
+    windows; a pack padded to 512 states and 16 query slots), scans past
+    32 states and 8 queries and the unfused calls the scan kernels do not
+    take (≡ plain, the unfused ones ≡ ``impl="fused"`` with one fused
+    launch) and the routers' refusals;
+11. nine standing queries of the Fig. 8 shape (Ŝ = 63, NQ = 9, k = 9,
+    ring 3208, 828 MB), 1024 lanes, 8 chunks through the fused and the
+    unfused feed (the wide build, split over blocks), plain on the last
+    chunk; each query ≡ its closed form on 8 lanes; kernel times and
+    bound, feed times, both ``n_split``; then the nine-query arena at a
+    window of 300 events, 16 lanes (Q = 9, S = 63).
 
 Then the kernels line and, last, ``{"ok": true, "device": {...}}``.  Every
 comparison of kernel and plain version is exact (tolerance 0): counts are
@@ -97,6 +107,9 @@ K5_QUERY = "SELECT * FROM S WHERE A1 ; A2+ ; A3 ; A4+ ; A5 WITHIN 100 events"
 PACKED_QUERY = "SELECT * FROM S WHERE {} WITHIN {} events"
 PACKED_SEQS = ("A1 ; A2 ; A3", "B1 ; B2 ; B3", "B4 ; B5 ; B6",
                "A1 ; B5 ; A3")
+# phase 11: nine standing queries of the same shape (Ŝ = 63, NQ = 9)
+NINE_SEQS = PACKED_SEQS + ("A2 ; B1 ; B6", "B2 ; A3 ; B4", "B3 ; B6 ; A1",
+                           "A3 ; A1 ; B2", "B5 ; B4 ; A2")
 
 
 def check(cond: bool, what: str) -> None:
@@ -112,6 +125,8 @@ def same(a, b) -> bool:
     """Exact equality of tensors, arrays or state dicts."""
     if isinstance(a, dict):
         return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
     if isinstance(a, torch.Tensor):
         return a.dtype == b.dtype and torch.equal(a, b)
     return np.array_equal(np.asarray(a), np.asarray(b))
@@ -1037,6 +1052,11 @@ def phase_packed(seed: int, B: int = 1024, n_chunks: int = 8) -> dict:
             plan = counters["fused_scan"].last_plan
             check(plan[0] and plan[1] >= 2, f"phase 9's ring (372 KB a "
                   f"lane) is split over blocks in shared memory, got {plan}")
+        if impl == "unfused":
+            scan_plan = counters["cea_scan_multi"].last_plan
+            check(scan_plan[0] and scan_plan[1] >= 2, f"phase 9's unfused "
+                  f"ring is split over blocks in shared memory, got "
+                  f"{scan_plan}")
     want = {"fused": dict(fused_scan=n_chunks),
             "unfused": dict(bitvector=n_chunks, cea_scan_multi=n_chunks),
             "ref": {}}
@@ -1072,19 +1092,30 @@ def phase_packed(seed: int, B: int = 1024, n_chunks: int = 8) -> dict:
           "phase 9: classify + scan ≡ pipeline")
     del st_s, st_p
 
-    # the kernels alone on chunk 0 from the final ring
+    # the kernels alone on chunk 0 from the final ring: cea_scan_multi at
+    # its default split and forced ones, each ≡ the plain version
     ring = engines["fused"].state
     start = n_chunks * T
     kw = dict(init_mask=t.init_mask, epsilon=eps, start_pos=start)
-    got = ops.cea_scan_multi(ids, t.m_all, t.finals, ring.clone(), **kw)
     want_ = ref.cea_scan_multi(ids, t.m_all, t.finals, ring.clone(), **kw)
-    check(same(got[0], want_[0]) and same(got[1], want_[1]),
-          "phase 9: cea_scan_multi kernel ≡ plain")
-    err = max(max_abs_err(got[0], want_[0]), max_abs_err(got[1], want_[1]))
-    del got, want_
-    st_k, st_p = ring.clone(), ring.clone()
-    ms = cuda_ms(lambda: ops.cea_scan_multi(ids, t.m_all, t.finals, st_k,
-                                            inplace=True, **kw), reps=3)
+    scan_split_ms, err = {}, 0.0
+    for split in (None, 2, 4):
+        got = ops.cea_scan_multi(ids, t.m_all, t.finals, ring.clone(),
+                                 split=split, **kw)
+        check(same(got[0], want_[0]) and same(got[1], want_[1]),
+              f"phase 9: cea_scan_multi split={split} kernel ≡ plain")
+        err = max(err, max_abs_err(got[0], want_[0]),
+                  max_abs_err(got[1], want_[1]))
+        del got
+        st_k = ring.clone()
+        scan_split_ms[str(split or "default")] = cuda_ms(
+            lambda: ops.cea_scan_multi(ids, t.m_all, t.finals, st_k,
+                                       inplace=True, split=split, **kw),
+            reps=3)
+        del st_k
+    del want_
+    ms = scan_split_ms["default"]
+    st_p = ring.clone()
     plain_ms = cuda_ms(lambda: ref.cea_scan_multi(ids, t.m_all, t.finals,
                                                   st_p, **kw), reps=1)
     # the fused kernel alone: the default split and forced ones, each ≡
@@ -1107,14 +1138,7 @@ def phase_packed(seed: int, B: int = 1024, n_chunks: int = 8) -> dict:
         del st_f
     del want_f
     fused_ms = fused_split_ms["default"]
-    # the same scan on half the ring (1608 slots, 186 KB a lane), which
-    # fits shared memory: what the global-memory ring costs
-    half = 1608
-    st_h = ring[:, :half].contiguous()
-    half_ms = cuda_ms(lambda: ops.cea_scan_multi(
-        ids, t.m_all, t.finals, st_h, init_mask=t.init_mask,
-        epsilon=half - 1, start_pos=start, inplace=True), reps=3)
-    del st_k, st_p, st_h
+    del st_p
     bound = scan_bound(t.m_all, t.finals, ids, B, mq.ring, 28, 4)
     med = {impl: float(np.median(run["feed_s"])) for impl, run in
            runs.items()}
@@ -1132,9 +1156,10 @@ def phase_packed(seed: int, B: int = 1024, n_chunks: int = 8) -> dict:
                                            for k, v in med.items()},
               "events_per_s": {k: B * T / v for k, v in med.items()},
               "cea_scan_multi_ms": ms, "cea_scan_multi_plain_ms": plain_ms,
+              "cea_scan_multi_n_split": scan_plan[1],
+              "cea_scan_multi_ms_by_n_split": scan_split_ms,
               "fused_scan_ms": fused_ms, "fused_scan_n_split": plan[1],
               "fused_scan_ms_by_n_split": fused_split_ms,
-              "cea_scan_multi_ms_half_ring_in_smem": half_ms,
               "bound_ms": bound[0], "bound_by": bound[1],
               "bound_bytes": bound[2], "bound_flops": bound[3],
               "max_abs_err": err,
@@ -1145,13 +1170,15 @@ def phase_packed(seed: int, B: int = 1024, n_chunks: int = 8) -> dict:
     return result
 
 
-def packed_arena(seed: int, B: int = 16, n_chunks: int = 2) -> dict:
-    """Correctness of the packed tECS arena: the four queries at a window
-    of 300 events, 16 lanes; store ≡ plain, lane 0 ≡ the host Engine."""
+def packed_arena(seed: int, B: int = 16, n_chunks: int = 2,
+                 seqs=PACKED_SEQS) -> dict:
+    """Correctness of the packed tECS arena: the queries at a window of
+    300 events, 16 lanes; store ≡ plain, lane 0 ≡ the host Engine."""
     from repro_torch.core.events import Event
+    from repro_torch.kernels.arena_update import KERNEL as AKERNEL
     from repro_torch.vector import MultiQueryEngine, StreamingVectorEngine
     T, eps, cap = 256, 300, 1 << 18
-    queries = [PACKED_QUERY.format(q, eps) for q in PACKED_SEQS]
+    queries = [PACKED_QUERY.format(q, eps) for q in seqs]
     types = ["A1", "A2", "A3"] + [f"B{i}" for i in range(1, 7)] + ["C1"]
     rng = np.random.default_rng(seed + 10)
     draws = rng.integers(0, 9, (n_chunks * T, B))
@@ -1167,6 +1194,7 @@ def packed_arena(seed: int, B: int = 16, n_chunks: int = 2) -> dict:
     plain = StreamingVectorEngine(MultiQueryEngine(queries, impl="ref"), T,
                                   B, arena_capacity=cap)
     counts, hits = [], []
+    launches = AKERNEL.launches
     for i in range(n_chunks):
         attrs = attrs_all[i * T:(i + 1) * T]
         ck, hk = kern.feed_attrs(attrs)
@@ -1175,6 +1203,8 @@ def packed_arena(seed: int, B: int = 16, n_chunks: int = 2) -> dict:
               "plain")
         counts.append(ck)
         hits += hk
+    check(AKERNEL.launches == launches + n_chunks,
+          "packed arena: one arena_update launch per chunk")
     check_engines_equal(kern, plain, "packed arena")
     del plain
     check(not bool(kern.state["arena"]["ovf"].any()),
@@ -1199,6 +1229,149 @@ def packed_arena(seed: int, B: int = 16, n_chunks: int = 2) -> dict:
             "arena_max_ptr": int(kern.state["arena"]["ptr"].max())}
 
 
+def phase_nine(seed: int, B: int = 1024, n_chunks: int = 8) -> dict:
+    """Nine standing queries of the Fig. 8 shape packed into one engine
+    (Ŝ = 63, NQ = 9, k = 9, ring 3208): the wide build of both counting
+    kernels and query groups past 8; fused and unfused feeds, plain on one
+    chunk; then the packed arena at a window of 300 events."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.vector import (MultiQueryEngine, StreamingVectorEngine,
+                                    tecs_arena)
+    T, eps = 256, 3200
+    queries = [PACKED_QUERY.format(q, eps) for q in NINE_SEQS]
+    types = ["A1", "A2", "A3"] + [f"B{i}" for i in range(1, 7)]
+    mq = MultiQueryEngine(queries)
+    pk, t = mq.packing, mq.tables
+    S, NQ, W = mq.packed_states, t.finals.shape[0], mq.ring
+    check(S == 63 and NQ == 9 and W == 3208 and pk.num_bits == 9,
+          f"phase 11 geometry is Ŝ=63, NQ=9, k=9, ring 3208, got Ŝ={S} "
+          f"NQ={NQ} ring {W} k={pk.num_bits}")
+    rng = np.random.default_rng(seed + 14)
+    draws = rng.integers(0, len(types), (n_chunks * T, B))
+    codes = np.array([mq.encoder.vocab["type"][x] for x in types],
+                     np.float32)
+    attrs_all = torch.from_numpy(codes[draws][:, :, None]).to(mq.device)
+    chunks = [attrs_all[i * T:(i + 1) * T] for i in range(n_chunks)]
+    engines = {"fused": StreamingVectorEngine(mq, T, B),
+               "unfused": StreamingVectorEngine(
+                   MultiQueryEngine(queries, impl="unfused"), T, B)}
+    runs, ring_before_last = {}, None
+    for impl, se in engines.items():
+        torch.cuda.synchronize()
+        counters = reset_launches()
+        feed_s, counts, hits = [], [], []
+        for i, attrs in enumerate(chunks):
+            if impl == "fused" and i == n_chunks - 1:
+                ring_before_last = se.state.clone()
+            t0 = time.perf_counter()
+            c, h = se.feed_attrs(attrs)
+            feed_s.append(time.perf_counter() - t0)
+            counts.append(c)
+            hits += h
+        runs[impl] = {"counts": np.concatenate(counts), "hits": hits,
+                      "feed_s": feed_s, "launches": read_launches(counters)}
+        kern = counters["fused_scan" if impl == "fused" else
+                        "cea_scan_multi"]
+        runs[impl]["plan"] = kern.last_plan
+        check(kern.last_plan[0] and kern.last_plan[1] >= 2,
+              f"phase 11 {impl}: the ring (812 KB a lane) is split over "
+              f"blocks in shared memory, got {kern.last_plan}")
+        check(se.compile_count == 1, f"phase 11 {impl}: compile_count "
+              f"{se.compile_count}")
+    want = {"fused": dict(fused_scan=n_chunks),
+            "unfused": dict(bitvector=n_chunks, cea_scan_multi=n_chunks)}
+    for impl, run in runs.items():
+        expect = {k: want[impl].get(k, 0) for k in run["launches"]}
+        check(run["launches"] == expect,
+              f"phase 11 {impl} launched {run['launches']}")
+    counts = runs["fused"]["counts"]
+    check(same(runs["unfused"]["counts"], counts) and
+          runs["unfused"]["hits"] == runs["fused"]["hits"] and
+          same(engines["unfused"].state, engines["fused"].state),
+          "phase 11: unfused counts, hits and ring ≡ fused")
+    check(counts.shape == (n_chunks * T, B, 9) and
+          counts.max() < EXACT_LIMIT and
+          float(engines["fused"].state.max()) < EXACT_LIMIT,
+          "phase 11: counts are (T, B, 9) and stay below 2^24")
+    for q, seq in enumerate(NINE_SEQS):
+        own = packed_codes(draws[:, :8], types, seq.split(" ; "))
+        check(same(seq3_counts(own, eps), counts[:, :8, q]),
+              f"phase 11: query {seq} equals its closed form on 8 lanes")
+    del engines["unfused"]
+
+    # the plain version on the last chunk, from the ring before it
+    last = chunks[-1]
+    start = ((n_chunks - 1) * T) % W
+    kw = dict(init_mask=t.init_mask, window=mq.window, start_pos=start)
+    m_p, ring_p = ops.cer_pipeline(
+        last, mq.encoder.specs, t.class_of, t.class_ind, t.m_all, t.finals,
+        ring_before_last, impl="ref", **kw)
+    counts_p = m_p.cpu().numpy().astype(np.int64)
+    hits_p = [((n_chunks - 1) * T + int(p), int(b))
+              for p, b in zip(*np.nonzero(counts_p.sum(axis=-1)))]
+    check(same(counts_p, counts[-T:]) and
+          hits_p == [h for h in runs["fused"]["hits"]
+                     if h[0] >= (n_chunks - 1) * T] and
+          same(ring_p, engines["fused"].state),
+          "phase 11: counts, hits and ring of the last chunk ≡ plain")
+    err = max_abs_err(ring_p, engines["fused"].state)
+    del ring_p, m_p
+
+    # each kernel alone on the last chunk, from the ring before it
+    ids = mq.classify(last)
+    st = ring_before_last.clone()
+    fused_ms = cuda_ms(lambda: ops.cer_pipeline(
+        last, mq.encoder.specs, t.class_of, t.class_ind, t.m_all, t.finals,
+        st, inplace=True, **kw), reps=3)
+    st.copy_(ring_before_last)
+    scan_ms = cuda_ms(lambda: ops.cea_scan_multi(
+        ids, t.m_all, t.finals, st, init_mask=t.init_mask, epsilon=eps,
+        start_pos=start, inplace=True), reps=3)
+    st.copy_(ring_before_last)
+    plain_ms = cuda_ms(lambda: ref.cea_scan_multi(
+        ids, t.m_all, t.finals, st, init_mask=t.init_mask, epsilon=eps,
+        start_pos=start), reps=1)
+    del st, ring_before_last
+    bound = scan_bound(t.m_all, t.finals, ids, B, W, S, NQ)
+    med = {impl: float(np.median(run["feed_s"])) for impl, run in
+           runs.items()}
+    result = {"phase": 11, "queries": queries, "B": B, "T": T,
+              "chunks": n_chunks, "W": W, "S": S, "NQ": NQ,
+              "k": pk.num_bits, "C": pk.num_classes,
+              "ring_MB": B * W * S * 4 / 1e6,
+              "launches": {impl: run["launches"] for impl, run in
+                           runs.items()},
+              "compile_count": engines["fused"].compile_count,
+              "matches_per_query": [int(x) for x in
+                                    counts.sum(axis=(0, 1))],
+              "max_count": int(counts.max()),
+              "feed_ms_per_chunk_median": {k: 1e3 * v
+                                           for k, v in med.items()},
+              "feed_ms_per_chunk": {k: [1e3 * x for x in run["feed_s"]]
+                                    for k, run in runs.items()},
+              "events_per_s": {k: B * T / v for k, v in med.items()},
+              "fused_scan_ms": fused_ms,
+              "fused_scan_n_split": runs["fused"]["plan"][1],
+              "cea_scan_multi_ms": scan_ms,
+              "cea_scan_multi_n_split": runs["unfused"]["plan"][1],
+              "plain_ms": plain_ms,
+              "bound_ms": bound[0], "bound_by": bound[1],
+              "bound_bytes": bound[2], "bound_flops": bound[3],
+              "max_abs_err": err,
+              "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9}
+    del engines, runs, attrs_all, chunks
+    result.update(packed_arena(seed, seqs=NINE_SEQS))
+    lay_mq = MultiQueryEngine([PACKED_QUERY.format(q, 300)
+                               for q in NINE_SEQS])
+    lay = tecs_arena._block_layout(lay_mq.arena_tables(), lay_mq.ring,
+                                   lay_mq.epsilon, 1 << 18)
+    check((lay.S, lay.Q) == (63, 9), f"phase 11 arena takes S=63, Q=9, "
+          f"got S={lay.S} Q={lay.Q}")
+    result.update(arena_S=lay.S, arena_Q=lay.Q, arena_M=lay.M)
+    emit(result)
+    return result
+
+
 def phase_edges(seed: int, dev="cuda") -> None:
     """Edge shapes of the three kernels against their plain versions, and
     the routers' refusals."""
@@ -1216,10 +1389,15 @@ def phase_edges(seed: int, dev="cuda") -> None:
         check(same(ops.bitvector(x, specs), ref.bitvector(x, specs)),
               f"phase 10: bitvector kernel ≡ plain at N={N} A={A} k={k}")
         n += 1
-    # S in each bucket; rings of exactly ε+1 and padded; start 0 and a
-    # chunked carry; two successors per row, entries of 2 where they meet
+    # S in each bucket, the wide build and query groups past 8; rings of
+    # exactly ε+1 and padded; start 0 and a chunked carry; two successors
+    # per row, entries of 2 where they meet; each at the default plan and
+    # forced splits (W=7 split 5 is trimmed to 4 blocks)
+    from repro_torch.kernels import cea_scan as scan_kernels
+    from repro_torch.kernels.fused_scan import plan_ring
     for S, NQ, eps, W in ((5, 1, 6, 7), (5, 2, 6, 16), (12, 3, 9, 10),
-                          (12, 8, 9, 24), (28, 4, 7, 8), (28, 1, 7, 13)):
+                          (12, 8, 9, 24), (28, 4, 7, 8), (28, 1, 7, 13),
+                          (40, 9, 6, 7), (63, 12, 9, 24), (24, 17, 7, 8)):
         M = np.zeros((6, S, S), np.float32)
         for s in range(1, S):
             for c in range(6):
@@ -1230,42 +1408,57 @@ def phase_edges(seed: int, dev="cuda") -> None:
         finals = (rng.random((NQ, S)) < 0.4).astype(np.float32)
         finals[:, 0] = 0.0
         init = np.zeros(S, np.float32)
-        init[rng.choice(np.arange(1, S), NQ, replace=False)] = 1.0
+        init[rng.choice(np.arange(1, S), min(NQ, S - 1),
+                        replace=False)] = 1.0
         B, T = 37, 96
         ids = torch.from_numpy(rng.integers(0, 6, (T, B)).astype(
             np.int32)).to(dev)
         Mt, ft, it = (torch.from_numpy(a).to(dev) for a in (M, finals, init))
         c0 = torch.zeros((B, W, S), device=dev)
-        for name, kern, plain in (
-                ("cea_scan_multi",
-                 lambda i, c, s: ops.cea_scan_multi(
-                     i, Mt, ft, c, init_mask=it, epsilon=eps, start_pos=s),
-                 lambda i, c, s: ref.cea_scan_multi(
-                     i, Mt, ft, c, init_mask=it, epsilon=eps, start_pos=s)),
-                ("cea_scan",
-                 lambda i, c, s: ops.cea_scan(i, Mt, ft[0], c, epsilon=eps,
-                                              start_pos=s),
-                 lambda i, c, s: ref.cea_scan(i, Mt, ft[0], c, epsilon=eps,
-                                              start_pos=s))):
-            full_k = kern(ids, c0, 0)
-            full_p = plain(ids, c0, 0)
-            m1, c1 = kern(ids[:40], c0, 0)
-            m2, c2 = kern(ids[40:], c1, 40)
-            check(same(full_k[0], full_p[0]) and same(full_k[1], full_p[1]),
-                  f"phase 10: {name} kernel ≡ plain at S={S} NQ={NQ} W={W}")
-            check(same(torch.cat([m1, m2]), full_k[0]) and
-                  same(c2, full_k[1]),
-                  f"phase 10: {name} chunked carry at S={S} W={W}")
-            check(float(full_k[0].max()) < EXACT_LIMIT,
-                  "phase 10: counts stay below 2^24")
-            n += 1
+        for split in (None, 2, 5):
+            want_plan = plan_ring(W, S, False, 10 ** 6, latest=False,
+                                  consume=False, split=split)
+            for name, kern, entry, plain in (
+                    ("cea_scan_multi", scan_kernels.MULTI,
+                     lambda i, c, s, sp: ops.cea_scan_multi(
+                         i, Mt, ft, c, init_mask=it, epsilon=eps,
+                         start_pos=s, split=sp),
+                     lambda i, c, s: ref.cea_scan_multi(
+                         i, Mt, ft, c, init_mask=it, epsilon=eps,
+                         start_pos=s)),
+                    ("cea_scan", scan_kernels.SINGLE,
+                     lambda i, c, s, sp: ops.cea_scan(
+                         i, Mt, ft[0], c, epsilon=eps, start_pos=s,
+                         split=sp),
+                     lambda i, c, s: ref.cea_scan(
+                         i, Mt, ft[0], c, epsilon=eps, start_pos=s))):
+                full_k = entry(ids, c0, 0, split)
+                check(kern.last_plan == want_plan, f"phase 10: {name} "
+                      f"split={split} ran {kern.last_plan}, expected "
+                      f"{want_plan}")
+                full_p = plain(ids, c0, 0)
+                m1, c1 = entry(ids[:40], c0, 0, split)
+                m2, c2 = entry(ids[40:], c1, 40, split)
+                check(same(full_k[0], full_p[0]) and
+                      same(full_k[1], full_p[1]),
+                      f"phase 10: {name} kernel ≡ plain at S={S} NQ={NQ} "
+                      f"W={W} split={split}")
+                check(same(torch.cat([m1, m2]), full_k[0]) and
+                      same(c2, full_k[1]),
+                      f"phase 10: {name} chunked carry at S={S} W={W} "
+                      f"split={split}")
+                check(float(full_k[0].max()) < EXACT_LIMIT,
+                      "phase 10: counts stay below 2^24")
+                n += 1
 
     # forced splits of the fused kernel against its plain version: rings
-    # of exactly ε+1, 28 states, start 0 and a chunked carry, time windows
+    # of exactly ε+1, 28 states, the wide build, query groups past 8, start
+    # 0 and a chunked carry, time windows
     from repro_torch.kernels.fused_scan import KERNEL as FKERNEL
     for S, NQ, eps, W, split in ((5, 1, 6, 7, 2), (5, 2, 6, 7, 3),
                                  (28, 4, 7, 8, 3), (12, 8, 9, 23, 5),
-                                 (7, 2, None, 37, 2), (28, 3, None, 37, 5)):
+                                 (7, 2, None, 37, 2), (28, 3, None, 37, 5),
+                                 (40, 9, 6, 7, 3), (45, 10, None, 29, 4)):
         timed = eps is None
         B, T, A, k, C = 37, 96, 3, 4, 6
         # two successors per row under a count window (entries of 2 where
@@ -1317,38 +1510,39 @@ def phase_edges(seed: int, dev="cuda") -> None:
               "phase 10: counts stay below 2^24")
         n += 1
 
-    # the routers refuse before any launch
+    n += pad512_case(seed, dev)
+    n += former_refusals(seed, dev)
+
+    # what the routers refuse, before any launch
     counters = reset_launches()
     S, NQ = 6, 2
     ids = torch.zeros((4, 2), dtype=torch.int32, device=dev)
 
-    def scan(S, NQ, W, eps):
+    def scan(S, NQ, W, eps, **kw):
         return ops.cea_scan_multi(
             ids, torch.zeros((3, S, S), device=dev),
             torch.zeros((NQ, S), device=dev),
             torch.zeros((2, W, S), device=dev),
-            init_mask=torch.zeros(S, device=dev), epsilon=eps)
-    refusals = [("S > 32", lambda: scan(33, 1, 8, 3)),
-                ("Q > 8", lambda: scan(12, 9, 8, 3)),
-                ("W < eps+1", lambda: scan(12, 2, 3, 3)),
-                ("k > 31", lambda: ops.bitvector(
-                    torch.zeros((3, 1), device=dev), [(0, 0, 0.0)] * 32))]
+            init_mask=torch.zeros(S, device=dev), epsilon=eps, **kw)
     pipe_args = (torch.zeros((4, 2, 1), device=dev), ((0, 0, 0.0),),
                  torch.zeros(2, dtype=torch.int32, device=dev), None,
                  torch.zeros((1, S, S), device=dev),
                  torch.zeros((NQ, S), device=dev))
     c0 = torch.zeros((2, 8, S), device=dev)
     init = torch.zeros(S, device=dev)
-    for what, kw in (
-            ("per-lane start_pos", dict(start_pos=torch.zeros(
-                2, dtype=torch.int32, device=dev))),
-            ("valid_counts", dict(valid_counts=torch.full(
-                (2,), 4, device=dev))),
-            ("LAST", dict(latest_q=torch.ones(NQ, device=dev))),
-            ("CONSUME", dict(consume_sq=torch.ones((NQ, S), device=dev)))):
-        refusals.append((f"unfused with {what}", lambda kw=kw: (
-            ops.cer_pipeline(*pipe_args, c0, init_mask=init, epsilon=5,
-                             impl="unfused", **kw))))
+    refusals = [("S > 512", lambda: scan(513, 1, 8, 3)),
+                ("W < eps+1", lambda: scan(12, 2, 3, 3)),
+                ("a scan split past the ring", lambda: scan(12, 2, 8, 3,
+                                                            split=9)),
+                ("per-lane start_pos in the scan router", lambda: scan(
+                    12, 2, 8, 3, start_pos=torch.zeros(2, device=dev))),
+                ("k > 31", lambda: ops.bitvector(
+                    torch.zeros((3, 1), device=dev), [(0, 0, 0.0)] * 32)),
+                ("fused S > 512", lambda: ops.cer_pipeline(
+                    *pipe_args[:4], torch.zeros((1, 513, 513), device=dev),
+                    torch.zeros((NQ, 513), device=dev),
+                    torch.zeros((2, 8, 513), device=dev),
+                    init_mask=torch.zeros(513, device=dev), epsilon=5))]
     for what, kw in (("LAST", dict(latest_q=torch.ones(NQ, device=dev))),
                      ("CONSUME", dict(consume_sq=torch.ones((NQ, S),
                                                             device=dev))),
@@ -1356,11 +1550,6 @@ def phase_edges(seed: int, dev="cuda") -> None:
         refusals.append((f"a forced split with {what}", lambda kw=kw: (
             ops.cer_pipeline(*pipe_args, c0, init_mask=init, epsilon=5,
                              impl="fused", **{"split": 2, **kw}))))
-    window = wkern.DeviceWindow.time(5.0, max_window_events=8)
-    refusals.append(("unfused with a time window", lambda: ops.cer_pipeline(
-        *pipe_args, wkern.init_state(window, 2, S, dev), init_mask=init,
-        window=window, event_ts=torch.zeros((4, 2), device=dev),
-        impl="unfused")))
     for what, fn in refusals:
         try:
             fn()
@@ -1372,6 +1561,126 @@ def phase_edges(seed: int, dev="cuda") -> None:
     torch.cuda.synchronize()
     emit({"phase": 10, "kernel_cases": n, "refusals": len(refusals),
           "max_abs_err": 0.0})
+
+
+def pad512_case(seed: int, dev) -> int:
+    """A pack padded to 512 states and 16 query slots over few classes,
+    small B and W: fused and unfused feeds, classify + scan and the
+    arena ≡ the plain version."""
+    from repro_torch.vector import MultiQueryEngine, StreamingVectorEngine
+    from repro_torch.vector.multiquery import build_packing
+    queries = ["SELECT * FROM S WHERE A1 ; A2+ ; A3 WITHIN 12 events",
+               "SELECT * FROM S WHERE A2 ; A1 WITHIN 12 events"]
+
+    def engine(impl):
+        return MultiQueryEngine.from_packing(
+            build_packing(queries, pad_states=512, pad_queries=16),
+            impl=impl, device=dev)
+    mq = engine("fused")
+    check(mq.packed_states == 512 and mq.tables.finals.shape[0] == 16 and
+          mq.packing.num_classes <= 8, "phase 10: the padded pack has 512 "
+          "states, 16 query slots and few classes")
+    B, T = 8, 64
+    rng = np.random.default_rng(seed + 12)
+    types = ["A1", "A2", "A3", "B1"]
+    codes = np.array([mq.encoder.vocab["type"].get(x, -1.0) for x in types],
+                     np.float32)
+    chunks = [torch.from_numpy(codes[rng.integers(0, 4, (T, B))][:, :, None]
+                               ).to(dev) for _ in range(3)]
+    runs = {}
+    for impl, cap in (("fused", None), ("unfused", None), ("ref", None),
+                      ("fused", 1 << 12)):
+        se = StreamingVectorEngine(mq if impl == "fused" and cap is None
+                                   else engine(impl), T, B,
+                                   arena_capacity=cap)
+        out = [se.feed_attrs(a) for a in chunks]
+        runs[(impl, cap)] = (np.concatenate([c for c, _ in out]),
+                             [h for _, hs in out for h in hs],
+                             (se.state["C"] if cap else se.state).clone())
+    want = runs[("ref", None)]
+    check(int(want[0].sum()) > 0, "phase 10: the padded pack matches")
+    for key, got in runs.items():
+        check(same(got[0], want[0]) and got[1] == want[1] and
+              same(got[2], want[2]), f"phase 10: padded pack {key} ≡ plain")
+    ids = mq.classify(chunks[0])
+    m_s, st_s = mq.scan(ids, mq.init_state(B))
+    m_p, st_p = engine("ref").pipeline(chunks[0], mq.init_state(B))
+    check(same(m_s, m_p) and same(st_s, st_p),
+          "phase 10: padded pack classify + scan ≡ plain")
+    return len(runs) + 1
+
+
+def former_refusals(seed: int, dev) -> int:
+    """33 states and 9 queries in the scan kernels ≡ plain; the unfused
+    pipeline with per-lane offsets, valid counts, LAST, CONSUME or a time
+    window goes to the fused kernel (one launch, nothing else) ≡
+    impl="fused" ≡ plain."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import window as wkern
+    rng = np.random.default_rng(seed + 13)
+    T, B, n = 16, 5, 0
+    for S, NQ in ((33, 1), (12, 9)):
+        M = np.zeros((3, S, S), np.float32)
+        for s in range(1, S):
+            M[:, s, rng.integers(1, S, 3)] = 1.0
+        ids = torch.from_numpy(rng.integers(0, 3, (T, B)).astype(
+            np.int32)).to(dev)
+        Mt = torch.from_numpy(M).to(dev)
+        ft = torch.from_numpy((rng.random((NQ, S)) < 0.5).astype(
+            np.float32)).to(dev)
+        it = torch.zeros(S, device=dev)
+        it[1] = 1.0
+        c0 = torch.from_numpy((rng.random((B, 8, S)) < 0.2).astype(
+            np.float32)).to(dev)
+        got = ops.cea_scan_multi(ids, Mt, ft, c0, init_mask=it, epsilon=3)
+        want = ref.cea_scan_multi(ids, Mt, ft, c0, init_mask=it, epsilon=3)
+        check(same(got[0], want[0]) and same(got[1], want[1]),
+              f"phase 10: cea_scan_multi at S={S} NQ={NQ} ≡ plain")
+        n += 1
+    S, NQ, A, k, C = 6, 2, 2, 3, 4
+    M = np.zeros((C, S, S), np.float32)
+    for s in range(1, S):
+        M[:, s, rng.integers(1, S, C)] = 1.0
+    args = (torch.from_numpy(rng.normal(size=(T, B, A)).astype(
+                np.float32)).to(dev),
+            [(int(rng.integers(0, A)), int(rng.integers(0, 6)),
+              float(np.float32(rng.normal()))) for _ in range(k)],
+            torch.from_numpy(rng.integers(0, C, 1 << k).astype(
+                np.int32)).to(dev), None, torch.from_numpy(M).to(dev),
+            torch.from_numpy((rng.random((NQ, S)) < 0.5).astype(
+                np.float32)).to(dev))
+    init = torch.zeros(S, device=dev)
+    init[1] = 1.0
+    c0 = torch.from_numpy((rng.random((B, 8, S)) < 0.3).astype(
+        np.float32)).to(dev)
+    window = wkern.DeviceWindow.time(5.0, max_window_events=8)
+    for what, kw in (
+            ("per-lane start_pos", dict(start_pos=torch.tensor(
+                [3, 0, 9, 1, 0], dtype=torch.int32, device=dev))),
+            ("valid_counts", dict(valid_counts=torch.tensor(
+                [T, 1, 0, 7, T], device=dev))),
+            ("LAST", dict(latest_q=torch.ones(NQ, device=dev))),
+            ("CONSUME", dict(consume_sq=torch.ones((NQ, S), device=dev))),
+            ("a time window", dict(window=window, event_ts=torch.arange(
+                T * B, dtype=torch.float32, device=dev).reshape(T, B)))):
+        state = (wkern.init_state(window, B, S, dev) if "window" in kw
+                 else c0)
+        kw = {"epsilon": 5, **kw} if "window" not in kw else kw
+        counters = reset_launches()
+        got = ops.cer_pipeline(*args, state, init_mask=init, impl="unfused",
+                               **kw)
+        launched = read_launches(counters)
+        check(launched == {**{name: 0 for name in launched},
+                           "fused_scan": 1},
+              f"phase 10: unfused with {what} launched {launched}")
+        fused = ops.cer_pipeline(*args, state, init_mask=init, impl="fused",
+                                 **kw)
+        plain = ops.cer_pipeline(*args, state, init_mask=init, impl="ref",
+                                 **kw)
+        check(same(got, fused) and same(got, plain),
+              f"phase 10: unfused with {what} ≡ fused ≡ plain")
+        n += 1
+    return n
 
 
 def main() -> None:
@@ -1399,6 +1708,7 @@ def main() -> None:
     del main_run
     packed_res = phase_packed(args.seed)
     phase_edges(args.seed)
+    nine_res = phase_nine(args.seed)
     unf = unf_res["kernels"]
     emit({"kernels": [{
         "name": "fused_scan", "route": "cuda",
@@ -1413,7 +1723,9 @@ def main() -> None:
         "bound_by": main_res["bound_by"],
         "library_ms": None,
         "phase9_ms": packed_res["fused_scan_ms"],
-        "phase9_n_split": packed_res["fused_scan_n_split"]}, {
+        "phase9_n_split": packed_res["fused_scan_n_split"],
+        "phase11_ms": nine_res["fused_scan_ms"],
+        "phase11_n_split": nine_res["fused_scan_n_split"]}, {
         "name": "arena_update", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/arena_update.cu",
         "replaces": "src/repro/kernels/arena_update.py:88",
@@ -1453,7 +1765,10 @@ def main() -> None:
         "plain_ms": packed_res["cea_scan_multi_plain_ms"],
         "bound_ms": packed_res["bound_ms"],
         "bound_by": packed_res["bound_by"],
-        "library_ms": None}]})
+        "library_ms": None,
+        "n_split": packed_res["cea_scan_multi_n_split"],
+        "phase11_ms": nine_res["cea_scan_multi_ms"],
+        "phase11_n_split": nine_res["cea_scan_multi_n_split"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

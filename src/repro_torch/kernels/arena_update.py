@@ -21,8 +21,7 @@ import torch
 from .build import LIBRARY
 from .ref import ARENA_NULL, ArenaBlockLayout
 
-MAX_STATES = 32
-MAX_QUERIES = 8     # one warp of the 256-thread block per query's chain
+MAX_STATES = 512   # the reference's MAX_DET_STATES
 INT32_MAX = 2 ** 31 - 1
 
 _P = ctypes.c_void_p
@@ -53,14 +52,29 @@ def layout_table(lay: ArenaBlockLayout, finals_sq) -> np.ndarray:
         fs_off, init, finals]).astype(np.int32)
 
 
-def check_launchable(lay: ArenaBlockLayout, steps: int) -> None:
-    """Raise ``ValueError`` for what the kernel does not take."""
+def smem_bytes(lay: ArenaBlockLayout) -> int:
+    """Dynamic shared memory of a launch: the layout tables, one step's
+    predecessor table (S·K·3), its clear mask (S) and hits (Q), int32."""
+    S, K, Q = lay.S, lay.K, lay.Q
+    ntab = 2 * K * S + 4 * K + 2 * S + S * Q     # layout_table's length
+    return 4 * (ntab + S * K * 3 + S + Q)
+
+
+def check_launchable(lay: ArenaBlockLayout, steps: int,
+                     smem_limit: Optional[int] = None) -> None:
+    """Raise ``ValueError`` for what the kernel does not take;
+    ``smem_limit`` is the card's dynamic shared memory per block."""
     if not 1 <= lay.S <= MAX_STATES:
-        raise ValueError(f"arena_update takes 1..{MAX_STATES} det states, "
-                         f"got {lay.S}")
-    if not 1 <= lay.Q <= MAX_QUERIES:
-        raise ValueError(f"arena_update takes 1..{MAX_QUERIES} queries per "
-                         f"launch, got {lay.Q}")
+        raise ValueError(f"arena_update takes 1..{MAX_STATES} det states "
+                         f"(the reference's MAX_DET_STATES), got {lay.S}")
+    if lay.Q < 1:
+        raise ValueError(f"arena_update needs at least one query, got "
+                         f"{lay.Q}")
+    if smem_limit is not None and smem_bytes(lay) > smem_limit:
+        raise ValueError(
+            f"arena_update's layout tables take {smem_bytes(lay)} bytes of "
+            f"shared memory (S={lay.S}, K={lay.K}, Q={lay.Q}), above the "
+            f"card's {smem_limit}")
     if lay.voffset + steps * lay.M > INT32_MAX:
         raise ValueError(
             f"virtual node ids overflow int32: voffset {lay.voffset} + "
@@ -77,16 +91,31 @@ class ArenaUpdateKernel:
     def __init__(self):
         self.launches = 0
         self._lib = None
+        self._smem_limit = None
 
     def library(self) -> ctypes.CDLL:
-        """The shared library, with this kernel's entry point bound."""
+        """The shared library, with this kernel's entry points bound."""
         if self._lib is None:
             lib = LIBRARY.get()
             lib.arena_update_launch.restype = _I
             lib.arena_update_launch.argtypes = (
                 [_P] * 18 + [_I] + [_P] * 4 + [_I] * 10 + [_P])
+            lib.arena_update_max_dynamic_smem.restype = _I
+            lib.arena_update_max_dynamic_smem.argtypes = [ctypes.POINTER(_I)]
             self._lib = lib
         return self._lib
+
+    def smem_limit(self) -> int:
+        """Dynamic shared memory a block may use on the current card."""
+        if self._smem_limit is None:
+            out = _I(0)
+            err = self.library().arena_update_max_dynamic_smem(
+                ctypes.byref(out))
+            if err != 0:
+                raise RuntimeError(f"arena_update_max_dynamic_smem failed: "
+                                   f"CUDA error {err}")
+            self._smem_limit = out.value
+        return self._smem_limit
 
     def __call__(self, cells0: Sequence[torch.Tensor],
                  xs: Sequence[torch.Tensor], *, lay: ArenaBlockLayout,
@@ -136,6 +165,7 @@ class ArenaUpdateKernel:
             return torch.full(shape, value, dtype=torch.int32, device=dev)
 
         with torch.cuda.device(dev):
+            check_launchable(lay, steps, self.smem_limit())
             lib = self.library()
             tabs = torch.from_numpy(layout_table(lay, finals_sq)).to(dev)
             cells = [c.clone() for c in cells0]

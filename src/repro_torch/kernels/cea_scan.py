@@ -9,9 +9,15 @@ kernels of ``src/repro/kernels/cea_scan.py``:
 * :data:`SINGLE` — ``cea_scan_pallas``, the single-query scan (one-hot seed
   at ``init_state``, one finals row).
 
-Each has its own launch counter.  They live in the port's one kernel
-library (:mod:`repro_torch.kernels.build`), built at first use; nothing is
-built or loaded when this module is imported.
+Each has its own launch counter and ``last_plan``.  A lane's ring lives
+where :func:`repro_torch.kernels.fused_scan.plan_ring` puts the fused
+kernel's: whole in one block's shared memory when it fits, else split over
+``n_split`` blocks per lane (grid ``(B, n_split)``), each holding a
+contiguous share in shared memory and adding its partial per-query counts
+with ``atomicAdd``.  The scans take neither LAST nor CONSUME, so every ring
+that does not fit splits.  They live in the port's one kernel library
+(:mod:`repro_torch.kernels.build`), built at first use; nothing is built or
+loaded when this module is imported.
 
 Use :func:`repro_torch.kernels.ops.cea_scan` and
 :func:`~repro_torch.kernels.ops.cea_scan_multi`, which route CUDA tensors
@@ -25,11 +31,9 @@ from typing import Optional
 import torch
 
 from .build import LIBRARY
+from .fused_scan import MAX_STATES, plan_ring, state_bucket
 
-MAX_QUERIES = 8     # queries per launch
 MAX_THREADS = 256
-_STATE_BUCKETS = (8, 16, 32)  # det-state template instantiations
-MAX_STATES = _STATE_BUCKETS[-1]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,10 +49,10 @@ def _library() -> ctypes.CDLL:
         lib = LIBRARY.get()
         lib.cea_scan_multi_launch.restype = _I
         lib.cea_scan_multi_launch.argtypes = (
-            [_P] * 6 + [_LL] + [_I] * 10 + [_P])
+            [_P] * 6 + [_LL] + [_I] * 11 + [_P])
         lib.cea_scan_launch.restype = _I
         lib.cea_scan_launch.argtypes = (
-            [_P] * 3 + [_I] + [_P] * 2 + [_LL] + [_I] * 9 + [_P])
+            [_P] * 3 + [_I] + [_P] * 2 + [_LL] + [_I] * 10 + [_P])
         lib.cea_scan_max_dynamic_smem.restype = _I
         lib.cea_scan_max_dynamic_smem.argtypes = [_I, ctypes.POINTER(_I)]
         _LIB = lib
@@ -72,12 +76,11 @@ def check_launchable(*, T: int, B: int, S: int, NQ: int, W: int,
     """Raise ``ValueError`` for shapes the kernels do not take."""
     if NC < 1:
         raise ValueError("cea_scan needs at least one symbol class")
-    if not 1 <= NQ <= MAX_QUERIES:
-        raise ValueError(f"cea_scan takes 1..{MAX_QUERIES} queries per "
-                         f"launch, got {NQ}")
+    if NQ < 1:
+        raise ValueError(f"cea_scan takes 1 or more queries, got {NQ}")
     if not 1 <= S <= MAX_STATES:
-        raise ValueError(f"cea_scan takes 1..{MAX_STATES} det states, got "
-                         f"{S}")
+        raise ValueError(f"cea_scan takes 1..{MAX_STATES} det states (the "
+                         f"reference's MAX_DET_STATES), got {S}")
     if B < 1 or T < 0 or epsilon < 0:
         raise ValueError(f"cea_scan needs B ≥ 1, T ≥ 0 and epsilon ≥ 0, got "
                          f"B={B} T={T} epsilon={epsilon}")
@@ -94,26 +97,30 @@ class CeaScanKernel:
     ``multi=True`` is the packed scan (init mask, ``(NQ, S)`` finals,
     matches ``(T, B, NQ)``); ``multi=False`` the single-query scan
     (``init_state``, ``(S,)`` finals, matches ``(T, B)``).  ``launches``
-    counts kernel launches of this entry.
+    counts kernel launches of this entry; ``last_plan`` is the
+    ``(use_smem, n_split)`` of its latest launch.
     """
 
     def __init__(self, multi: bool):
         self.multi = multi
         self.name = "cea_scan_multi" if multi else "cea_scan"
         self.launches = 0
+        self.last_plan = None
 
     def __call__(self, class_ids: torch.Tensor, m_all: torch.Tensor,
                  finals: torch.Tensor, c: torch.Tensor, *, epsilon: int,
                  start: int, init_mask: Optional[torch.Tensor] = None,
-                 init_state: int = 1) -> torch.Tensor:
+                 init_state: int = 1,
+                 split: Optional[int] = None) -> torch.Tensor:
         """Launch on one chunk; updates the ring ``c`` in place and returns
         the matches.
 
         class_ids (T, B) int32 | m_all (C, S, S) f32 | finals (NQ, S) f32
         (multi) or (S,) f32 | c (B, W, S) f32 | init_mask (S,) f32 (multi
         only) | start: the stream position of the chunk's first event, one
-        for every lane.  Raises ``ValueError`` on what the kernel does not
-        take.
+        for every lane.  ``split`` forces the number of blocks per lane
+        (:func:`~repro_torch.kernels.fused_scan.plan_ring`).  Raises
+        ``ValueError`` on what the kernel does not take.
         """
         T, B = class_ids.shape
         NC, S, _ = m_all.shape
@@ -146,29 +153,37 @@ class CeaScanKernel:
                 raise ValueError(f"{self.name} operand {name} must be "
                                  "contiguous")
 
-        max_s = next(m for m in _STATE_BUCKETS if S <= m)
-        threads = min(MAX_THREADS, max(32, -(-W // 32) * 32))
+        max_s = state_bucket(S)
         with torch.cuda.device(dev):
-            use_smem = W * (S | 1) * 4 <= _smem_limit(max_s)
+            use_smem, n_split = plan_ring(W, S, False, _smem_limit(max_s),
+                                          latest=False, consume=False,
+                                          split=split)
+            seg = -(-W // n_split)
+            threads = min(MAX_THREADS, max(32, -(-seg // 32) * 32))
             lib = _library()
             out_shape = (T, B, NQ) if self.multi else (T, B)
-            matches = torch.empty(out_shape, dtype=torch.float32, device=dev)
+            # split segments add their partial counts into zeros
+            matches = (torch.zeros if n_split > 1 else torch.empty)(
+                out_shape, dtype=torch.float32, device=dev)
             stream = torch.cuda.current_stream(dev).cuda_stream
             if self.multi:
                 err = lib.cea_scan_multi_launch(
                     class_ids.data_ptr(), m_all.data_ptr(),
                     finals.data_ptr(), init_mask.data_ptr(), c.data_ptr(),
                     matches.data_ptr(), int(start), T, B, S, NQ, NC, W,
-                    int(epsilon), max_s, threads, int(use_smem), stream)
+                    int(epsilon), max_s, threads, int(use_smem), n_split,
+                    stream)
             else:
                 err = lib.cea_scan_launch(
                     class_ids.data_ptr(), m_all.data_ptr(),
                     finals.data_ptr(), int(init_state), c.data_ptr(),
                     matches.data_ptr(), int(start), T, B, S, NC, W,
-                    int(epsilon), max_s, threads, int(use_smem), stream)
+                    int(epsilon), max_s, threads, int(use_smem), n_split,
+                    stream)
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
         self.launches += 1
+        self.last_plan = (use_smem, n_split)
         return matches
 
 

@@ -28,8 +28,11 @@
 // double-buffered: a step reads the pre-fold table and writes the other
 // buffer.  The only cross-slot work is the right-chain at hit steps: one
 // warp per query scans the chain with warp shuffles (count of valid slots
-// and last valid position).  Dead steps and steps without a hit skip their
-// work, uniformly per block, which is exact because the rows are canonical.
+// and last valid position); with more than 8 queries warp q % 8 takes
+// query q.  Dead steps and steps without a hit skip their work, uniformly
+// per block, which is exact because the rows are canonical.  The layout
+// tables and one step's predecessor table (S.K.3 ints) sit in dynamic shared
+// memory; the wrapper checks them against the card's limit.
 //
 // Build: see repro_torch/kernels/build.py (nvcc -gencode
 // arch=compute_90a,code=sm_90a, linked with the other kernels into one
@@ -40,7 +43,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxQ = kThreads / 32;  // one warp per query for the chain
+constexpr int kWarps = kThreads / 32;  // warp q % kWarps builds q's chain
 constexpr int kNull = -1;
 
 struct Args {
@@ -226,10 +229,10 @@ arena_update_kernel(const Args a) {
     flipped = !flipped;
     if (!any_hit) continue;
 
-    // -- right-chain: one warp per query, oldest start first ---------------
+    // -- right-chain: warp q % kWarps per query, oldest start first ---------
     __syncthreads();  // every slot's same-slot root is in sa
-    if (warp < Q && sHit[warp] > 0) {
-      const int q = warp;
+    for (int q = warp; q < Q; q += kWarps) {
+      if (sHit[q] <= 0) continue;
       const int E = a.epsilon + 1;
       const int seg = (E + 31) / 32;
       const int lo = min(E, lane * seg), hi = min(E, lo + seg);
@@ -289,6 +292,16 @@ arena_update_kernel(const Args a) {
 
 extern "C" {
 
+// Largest dynamic shared memory (bytes) a block may take on the current
+// device: the layout tables and one step's predecessor table must fit.
+int arena_update_max_dynamic_smem(int* out) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  return cudaDeviceGetAttribute(out, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                dev);
+}
+
 int arena_update_launch(int* cid, int* cu, int* cl, int* cr, int* aid,
                         int* au, int* al, int* ar, int* sa, const int* cls,
                         const int* hit, const int* j, const int* live,
@@ -298,8 +311,8 @@ int arena_update_launch(int* cid, int* cu, int* cl, int* cr, int* aid,
                         int steps, int W, int S, int K, int Q, int M,
                         int epsilon, int off_bottom, int off_chain,
                         void* stream) {
-  if (Bn < 1 || steps < 0 || W < 1 || S < 1 || K < 1 || Q < 1 ||
-      Q > kMaxQ || M < 1 || epsilon < 0)
+  if (Bn < 1 || steps < 0 || W < 1 || S < 1 || K < 1 || Q < 1 || M < 1 ||
+      epsilon < 0)
     return cudaErrorInvalidValue;
   Args a{{cid, cu, cl, cr}, {aid, au, al, ar}, sa, cls, hit, j, live, vb,
          expire, consume, ptab, tabs, valid, left, right, roots,

@@ -41,8 +41,15 @@
 // events, one event per thread, into a shared class table (segment 0 also
 // writes the trace).  The class lookup is a direct gather (the TPU kernel's
 // one-hot matmuls avoided gathers), and products skip zero run counts,
-// which keeps the work near the sparse count on real tables.  wgmma, TMA,
-// thread-block clusters and a sparse M are left for later work.
+// which keeps the work near the sparse count on real tables.  Rows of up
+// to 32 states live in registers (builds for 8, 16 and 32 states, with
+// M_all[class] staged in shared memory); wider packs, up to 512 states,
+// take the wide build of scan_row.cuh (tiles of 32 output states, M_all
+// read from L2).  Queries are emitted in groups of 8, so a pack of any size
+// takes the same registers; the first group of a narrow build reads the
+// row still in registers, the others read the updated rows back, and
+// LAST's arg-min and CONSUME's clear mask are taken group by group.  wgmma,
+// TMA, thread-block clusters and a sparse M are left for later work.
 //
 // Build: see repro_torch/kernels/build.py (nvcc -gencode
 // arch=compute_90a,code=sm_90a, linked with the other kernels into one
@@ -52,11 +59,11 @@
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "scan_row.cuh"
 
 namespace {
 
 constexpr int kMaxBits = 14;    // predicates per query (2^14 class_of rows)
-constexpr int kMaxQ = 8;        // queries per launch
 constexpr int kMaxThreads = 256;
 constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kTile = 256;      // events whose classes are tabled at once
@@ -92,19 +99,24 @@ struct Args {
   int n_split;              // blocks per lane (grid y)
 };
 
-template <int MAXS>
+// MAXS is the state bucket: 8, 16 and 32 keep a slot's row in registers;
+// kMaxStates is the wide build (scan_row.cuh).  kMany: more than kQG
+// queries, emitted group by group (always so in the wide build).  Packs of
+// up to kQG queries take a narrow build without the group loop, which
+// would cost registers in the slot loop (8 states: 80 -> 101 a thread).
+template <int MAXS, bool kMany>
 __global__ void __launch_bounds__(kMaxThreads)
 fused_scan_kernel(const Args a, const Specs sp) {
+  constexpr bool kWide = MAXS > 32;
+  constexpr int kRow = kWide ? 1 : MAXS;  // staged row width (narrow only)
   extern __shared__ float ring_smem[];
-  __shared__ float sM[MAXS * MAXS];     // M_all[class], zero-padded
-  __shared__ float sF[kMaxQ * MAXS];    // finals
-  __shared__ float sCons[kMaxQ * MAXS]; // consume map
-  __shared__ float sInit[MAXS];
-  __shared__ float sLatest[kMaxQ];
-  __shared__ float sClr[MAXS];
-  __shared__ float rSum[kMaxWarps][kMaxQ];
-  __shared__ int rAge[kMaxWarps][kMaxQ];
-  __shared__ float rVal[kMaxWarps][kMaxQ];
+  __shared__ float sM[kRow * kRow];     // M_all[class], zero-padded
+  __shared__ float sF[kQG * kRow];      // finals of the first query group
+  __shared__ float sInit[kRow];
+  __shared__ float sClr[MAXS];          // CONSUME: states to clear
+  __shared__ float rSum[kMaxWarps][kQG];
+  __shared__ int rAge[kMaxWarps][kQG];
+  __shared__ float rVal[kMaxWarps][kQG];
   __shared__ int sCls[kTile];           // the tile's classes
   __shared__ float sTs[kTile];          // the tile's timestamps
 
@@ -118,19 +130,14 @@ fused_scan_kernel(const Args a, const Specs sp) {
   const int w0 = seg * L;
   const int n = min(L, W - w0);
 
-  for (int i = tid; i < MAXS * MAXS; i += nth) sM[i] = 0.f;
-  for (int i = tid; i < kMaxQ * MAXS; i += nth) {
-    const int q = i / MAXS, s = i % MAXS;
-    const bool in = q < NQ && s < S;
-    sF[i] = in ? a.finals[q * S + s] : 0.f;
-    sCons[i] = (in && a.consume) ? a.consume[q * S + s] : 0.f;
+  if (!kWide) {
+    for (int i = tid; i < kRow * kRow; i += nth) sM[i] = 0.f;
+    for (int i = tid; i < kQG * kRow; i += nth) {
+      const int q = i / kRow, s = i % kRow;
+      sF[i] = (q < NQ && s < S) ? a.finals[q * S + s] : 0.f;
+    }
+    for (int i = tid; i < kRow; i += nth) sInit[i] = i < S ? a.init[i] : 0.f;
   }
-  for (int i = tid; i < MAXS; i += nth) {
-    sInit[i] = i < S ? a.init[i] : 0.f;
-    sClr[i] = 0.f;
-  }
-  for (int i = tid; i < kMaxQ; i += nth)
-    sLatest[i] = (a.latest && i < NQ) ? a.latest[i] : 0.f;
 
   // The segment: staged into shared memory, or used in place.
   float* cg = a.c + (static_cast<size_t>(b) * W + w0) * S;
@@ -172,12 +179,14 @@ fused_scan_kernel(const Args a, const Specs sp) {
       const int t = t0 + i;
       const size_t tb = static_cast<size_t>(t) * B + b;
       if (t >= valid) {  // dead step: state untouched, zero counts
-        if (!split && tid < NQ) a.matches[tb * NQ + tid] = 0.f;
+        if (!split)
+          for (int q = tid; q < NQ; q += nth) a.matches[tb * NQ + q] = 0.f;
         continue;
       }
       const float* Mg = a.m_all + static_cast<size_t>(sCls[i]) * S * S;
-      for (int x = tid; x < S * S; x += nth)
-        sM[(x / S) * MAXS + x % S] = Mg[x];
+      if (!kWide)
+        for (int x = tid; x < S * S; x += nth)
+          sM[(x / S) * kRow + x % S] = Mg[x];
       float ts_t = 0.f, bound = 0.f;
       if (a.timed) {
         ts_t = sTs[i];
@@ -188,10 +197,11 @@ fused_scan_kernel(const Args a, const Specs sp) {
       const int em = pymod(j - a.epsilon - 1, W);
       __syncthreads();  // sM ready
 
-      float psum[kMaxQ], pval[kMaxQ];
-      int page[kMaxQ];
+      // per-query partials of the current group of kQG queries
+      float psum[kQG], pval[kQG];
+      int page[kQG];
 #pragma unroll
-      for (int q = 0; q < kMaxQ; ++q) {
+      for (int q = 0; q < kQG; ++q) {
         psum[q] = 0.f;
         pval[q] = 0.f;
         page[q] = INT_MAX;
@@ -210,32 +220,37 @@ fused_scan_kernel(const Args a, const Specs sp) {
         } else {
           clear = seed || w == em;
         }
-        float cin[MAXS], cout[MAXS];
+        if (kWide) {
+          wide_row_step(cw, S, clear, seed, a.init, 0, Mg);
+          continue;  // every query group reads the rows back below
+        }
+        float cin[kRow], cout[kRow];
 #pragma unroll
-        for (int s = 0; s < MAXS; ++s) {
+        for (int s = 0; s < kRow; ++s) {
           cin[s] = (s < S && !clear) ? cw[s] : 0.f;
           if (seed) cin[s] += sInit[s];
           cout[s] = 0.f;
         }
 #pragma unroll
-        for (int s = 0; s < MAXS; ++s) {
+        for (int s = 0; s < kRow; ++s) {
           const float v = cin[s];
           if (v != 0.f) {
 #pragma unroll
-            for (int u = 0; u < MAXS; ++u) cout[u] += v * sM[s * MAXS + u];
+            for (int u = 0; u < kRow; ++u) cout[u] += v * sM[s * kRow + u];
           }
         }
 #pragma unroll
-        for (int s = 0; s < MAXS; ++s)
+        for (int s = 0; s < kRow; ++s)
           if (s < S) cw[s] = cout[s];
         int age = jm - w;
         if (age < 0) age += W;
+        // the first query group, from the row still in registers
 #pragma unroll
-        for (int q = 0; q < kMaxQ; ++q) {
+        for (int q = 0; q < kQG; ++q) {
           if (q < NQ) {
             float v = 0.f;
 #pragma unroll
-            for (int u = 0; u < MAXS; ++u) v += cout[u] * sF[q * MAXS + u];
+            for (int u = 0; u < kRow; ++u) v += cout[u] * sF[q * kRow + u];
             psum[q] += v;
             if (v > 0.f && age < page[q]) {
               page[q] = age;
@@ -246,57 +261,66 @@ fused_scan_kernel(const Args a, const Specs sp) {
       }
       if (over) a.ovf[b] = 1;  // any segment may latch it
 
+      // emission, kQG queries at a time
+      const int q_end = (kWide || kMany) ? NQ : 1;
+      for (int q0 = 0; q0 < q_end; q0 += kQG) {
+        const int nq = min(kQG, NQ - q0);
+        if (kWide || q0 > 0) {
+          group_sums<true>(ring, rs, n, tid, nth, S, a.finals, q0, nq, jm,
+                           w0, W, psum, pval, page);
+          if (q0 > 0) __syncthreads();  // the previous group's partials read
+        }
 #pragma unroll
-      for (int q = 0; q < kMaxQ; ++q) {
-        if (q < NQ) {
-          float sum = psum[q], val = pval[q];
-          int age = page[q];
-          for (int off = 16; off > 0; off >>= 1) {
-            sum += __shfl_down_sync(0xffffffffu, sum, off);
-            if (a.latest) {
-              const int age2 = __shfl_down_sync(0xffffffffu, age, off);
-              const float val2 = __shfl_down_sync(0xffffffffu, val, off);
-              if (age2 < age) {
-                age = age2;
-                val = val2;
+        for (int q = 0; q < kQG; ++q) {
+          if (q < nq) {
+            float sum = psum[q], val = pval[q];
+            int age = page[q];
+            for (int off = 16; off > 0; off >>= 1) {
+              sum += __shfl_down_sync(0xffffffffu, sum, off);
+              if (a.latest) {
+                const int age2 = __shfl_down_sync(0xffffffffu, age, off);
+                const float val2 = __shfl_down_sync(0xffffffffu, val, off);
+                if (age2 < age) {
+                  age = age2;
+                  val = val2;
+                }
               }
             }
-          }
-          if (lane == 0) {
-            rSum[warp][q] = sum;
-            rAge[warp][q] = age;
-            rVal[warp][q] = val;
-          }
-        }
-      }
-      __syncthreads();  // per-warp partials ready; every read of sM is done
-
-      if (tid == 0) {
-        float trig[kMaxQ];
-        for (int q = 0; q < NQ; ++q) {
-          float sum = 0.f, val = 0.f;
-          int age = INT_MAX;
-          for (int wp = 0; wp < nwarps; ++wp) {
-            sum += rSum[wp][q];
-            if (rAge[wp][q] < age) {
-              age = rAge[wp][q];
-              val = rVal[wp][q];
+            if (lane == 0) {
+              rSum[warp][q] = sum;
+              rAge[warp][q] = age;
+              rVal[warp][q] = val;
             }
           }
-          if (split) {  // this segment's share of a sum; no LAST here
-            if (sum != 0.f) atomicAdd(&a.matches[tb * NQ + q], sum);
-            continue;
-          }
-          const float m =
-              sLatest[q] > 0.f ? (age < INT_MAX ? val : 0.f) : sum;
-          a.matches[tb * NQ + q] = m;
-          trig[q] = m > 0.f ? 1.f : 0.f;
         }
-        if (a.consume) {
-          for (int s = 0; s < S; ++s) {
-            float hit = 0.f;
-            for (int q = 0; q < NQ; ++q) hit += trig[q] * sCons[q * MAXS + s];
-            sClr[s] = hit > 0.f ? 1.f : 0.f;
+        __syncthreads();  // per-warp partials ready; every read of sM is done
+
+        if (tid == 0) {
+          for (int q = 0; q < nq; ++q) {
+            float sum = 0.f, val = 0.f;
+            int age = INT_MAX;
+            for (int wp = 0; wp < nwarps; ++wp) {
+              sum += rSum[wp][q];
+              if (rAge[wp][q] < age) {
+                age = rAge[wp][q];
+                val = rVal[wp][q];
+              }
+            }
+            const int qq = q0 + q;
+            if (split) {  // this segment's share of a sum; no LAST here
+              if (sum != 0.f) atomicAdd(&a.matches[tb * NQ + qq], sum);
+              continue;
+            }
+            const float m =
+                (a.latest && a.latest[qq] > 0.f) ? (age < INT_MAX ? val : 0.f)
+                                                 : sum;
+            a.matches[tb * NQ + qq] = m;
+            if (a.consume) {  // sClr[s] > 0: a triggered query owns s
+              const float trig = m > 0.f ? 1.f : 0.f;
+              const float* cr = a.consume + static_cast<size_t>(qq) * S;
+              for (int s = 0; s < S; ++s)
+                sClr[s] = (qq == 0 ? 0.f : sClr[s]) + trig * cr[s];
+            }
           }
         }
       }
@@ -305,7 +329,7 @@ fused_scan_kernel(const Args a, const Specs sp) {
         for (int wl = tid; wl < n; wl += nth) {
           float* cw = ring + static_cast<size_t>(wl) * rs;
           for (int s = 0; s < S; ++s)
-            if (sClr[s] != 0.f) cw[s] = 0.f;
+            if (sClr[s] > 0.f) cw[s] = 0.f;
         }
       }
     }
@@ -321,6 +345,7 @@ fused_scan_kernel(const Args a, const Specs sp) {
 
 template <int MAXS>
 cudaError_t max_dynamic_smem(int* out) {
+  constexpr bool kWide = MAXS > 32;  // both flags take the same static smem
   int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -328,22 +353,33 @@ cudaError_t max_dynamic_smem(int* out) {
                              dev);
   if (e != cudaSuccess) return e;
   cudaFuncAttributes attr;
-  e = cudaFuncGetAttributes(&attr, fused_scan_kernel<MAXS>);
+  e = cudaFuncGetAttributes(&attr, fused_scan_kernel<MAXS, kWide>);
   if (e != cudaSuccess) return e;
   *out = optin - static_cast<int>(attr.sharedSizeBytes);
   return cudaSuccess;
 }
 
+template <int MAXS, bool kMany>
+cudaError_t run(const Args& a, const Specs& sp, int threads, size_t smem,
+                cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_scan_kernel<MAXS, kMany>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const dim3 grid(a.B, a.n_split);
+  fused_scan_kernel<MAXS, kMany><<<grid, threads, smem, stream>>>(a, sp);
+  return cudaGetLastError();
+}
+
 template <int MAXS>
 cudaError_t launch(const Args& a, const Specs& sp, int threads, size_t smem,
                    cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      fused_scan_kernel<MAXS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  const dim3 grid(a.B, a.n_split);
-  fused_scan_kernel<MAXS><<<grid, threads, smem, stream>>>(a, sp);
-  return cudaGetLastError();
+  if constexpr (MAXS > 32) {
+    return run<MAXS, true>(a, sp, threads, smem, stream);
+  } else {
+    if (a.NQ > kQG) return run<MAXS, true>(a, sp, threads, smem, stream);
+    return run<MAXS, false>(a, sp, threads, smem, stream);
+  }
 }
 
 }  // namespace
@@ -356,6 +392,7 @@ int fused_scan_max_dynamic_smem(int max_s, int* out) {
   if (max_s == 8) return max_dynamic_smem<8>(out);
   if (max_s == 16) return max_dynamic_smem<16>(out);
   if (max_s == 32) return max_dynamic_smem<32>(out);
+  if (max_s == kMaxStates) return max_dynamic_smem<kMaxStates>(out);
   return cudaErrorInvalidValue;
 }
 
@@ -372,7 +409,7 @@ int fused_scan_launch(const float* attrs, const int* spec_col,
                       int B, int A, int S, int NQ, int W, int epsilon,
                       float time_size, int timed, int max_s, int threads,
                       int use_smem, int n_split, void* stream) {
-  if (k < 0 || k > kMaxBits || NQ < 1 || NQ > kMaxQ || S < 1 || S > max_s ||
+  if (k < 0 || k > kMaxBits || NQ < 1 || S < 1 || S > max_s ||
       threads < 32 || threads > kMaxThreads || threads % 32 != 0 || B < 1 ||
       W < 1 || n_split < 1 || n_split > W || n_split > kMaxSplit ||
       (n_split > 1 && (latest || consume)))
@@ -394,6 +431,8 @@ int fused_scan_launch(const float* attrs, const int* spec_col,
   if (max_s == 8) return launch<8>(a, sp, threads, smem, st);
   if (max_s == 16) return launch<16>(a, sp, threads, smem, st);
   if (max_s == 32) return launch<32>(a, sp, threads, smem, st);
+  if (max_s == kMaxStates)
+    return launch<kMaxStates>(a, sp, threads, smem, st);
   return cudaErrorInvalidValue;
 }
 

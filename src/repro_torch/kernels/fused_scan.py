@@ -27,10 +27,11 @@ import torch
 from .build import LIBRARY
 
 MAX_BITS = 14       # predicates per query
-MAX_QUERIES = 8     # queries per launch
 MAX_THREADS = 256
-_STATE_BUCKETS = (8, 16, 32)  # det-state template instantiations
-MAX_STATES = _STATE_BUCKETS[-1]
+# det-state template instantiations: rows in registers up to 32 states, the
+# wide build (csrc/scan_row.cuh) up to the reference's MAX_DET_STATES
+STATE_BUCKETS = (8, 16, 32, 512)
+MAX_STATES = STATE_BUCKETS[-1]
 MAX_SPLIT = 65535   # blocks per lane (the grid's y extent)
 
 _P = ctypes.c_void_p
@@ -150,7 +151,7 @@ class FusedScanKernel:
                 raise ValueError(f"fused_scan operand {name} must be "
                                  "contiguous")
 
-        max_s = next(m for m in _STATE_BUCKETS if S <= m)
+        max_s = state_bucket(S)
         with torch.cuda.device(dev):
             lib = self.library()
             use_smem, n_split = plan_ring(
@@ -190,12 +191,11 @@ def check_launchable(*, T: int, B: int, S: int, NQ: int, k: int, W: int,
     if k > MAX_BITS:
         raise ValueError(f"fused_scan takes at most {MAX_BITS} predicates, "
                          f"got {k}")
-    if not 1 <= NQ <= MAX_QUERIES:
-        raise ValueError(f"fused_scan takes 1..{MAX_QUERIES} queries per "
-                         f"launch, got {NQ}")
+    if NQ < 1:
+        raise ValueError(f"fused_scan takes 1 or more queries, got {NQ}")
     if not 1 <= S <= MAX_STATES:
-        raise ValueError(f"fused_scan takes 1..{MAX_STATES} det states, got "
-                         f"{S}")
+        raise ValueError(f"fused_scan takes 1..{MAX_STATES} det states (the "
+                         f"reference's MAX_DET_STATES), got {S}")
     if B < 1 or T < 0:
         raise ValueError(f"fused_scan needs B ≥ 1 and T ≥ 0, got B={B} "
                          f"T={T}")
@@ -204,6 +204,12 @@ def check_launchable(*, T: int, B: int, S: int, NQ: int, k: int, W: int,
     if W * S >= 2 ** 31:
         raise ValueError(f"fused_scan ring W·S must stay below 2^31, got "
                          f"{W}·{S}")
+
+
+def state_bucket(S: int) -> int:
+    """The template instantiation of both scan kernels that takes ``S``
+    states."""
+    return next(m for m in STATE_BUCKETS if S <= m)
 
 
 def ring_share_bytes(slots: int, S: int, timed: bool) -> int:

@@ -10,9 +10,10 @@ point of the device CER pipeline:
   (:mod:`repro_torch.kernels.fused_scan`).
 * ``impl="unfused"`` — the three-dispatch baseline: the bit-vector kernel
   (:func:`bitvector`), the ``class_of[bits]`` gather as a torch indexing op,
-  and the packed scan kernel (:func:`cea_scan_multi`).  It takes count
-  windows, one scalar ``start_pos`` and ANY semantics; other calls run the
-  plain version on the CPU and raise ``ValueError`` on CUDA.
+  and the packed scan kernel (:func:`cea_scan_multi`).  The scan kernels
+  take count windows, one scalar ``start_pos`` and ANY semantics; other
+  calls (:func:`unfused_refusal`) go where the reference package sends
+  them: the fused kernel on CUDA, the plain version on the CPU.
 * ``impl="ref"`` — the plain version on whatever device the tensors lie on.
 
 :func:`arena_block_update` routes the block tECS builder the same way.
@@ -83,7 +84,8 @@ def bitvector(attrs: torch.Tensor,
 def cea_scan(class_ids: torch.Tensor, m_all: torch.Tensor,
              finals: torch.Tensor, c0: torch.Tensor, *, epsilon: int,
              start_pos: Union[int, torch.Tensor] = 0, init_state: int = 1,
-             inplace: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+             inplace: bool = False, split: Optional[int] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Single-query windowed scan over precomputed classes.
 
     class_ids (T, B) int32 | m_all (C, S, S) f32 | finals (S,) | c0 (B, W, S)
@@ -92,8 +94,12 @@ def cea_scan(class_ids: torch.Tensor, m_all: torch.Tensor,
     for every lane.  Any ring W ≥ ε+1 gives the same matches.  CUDA tensors
     launch the scan kernel (:data:`repro_torch.kernels.cea_scan.SINGLE`);
     CPU tensors run the plain version.  ``inplace=True`` updates ``c0``.
+    ``split`` forces the kernel's blocks per lane
+    (:func:`repro_torch.kernels.fused_scan.plan_ring`); it changes no
+    result, and every route raises ``ValueError`` outside ``1..W``.
     """
     start = _scalar_start(start_pos, "cea_scan")
+    _check_scan_split(split, c0)
     if not _on_cuda(class_ids, "cea_scan"):
         matches, c_fin = ref.cea_scan(class_ids, m_all, finals, c0,
                                       epsilon=epsilon, start_pos=start,
@@ -102,7 +108,7 @@ def cea_scan(class_ids: torch.Tensor, m_all: torch.Tensor,
     c = c0 if inplace else c0.clone()
     matches = scan_kernels.SINGLE(class_ids, m_all, finals, c,
                                   epsilon=epsilon, start=start,
-                                  init_state=init_state)
+                                  init_state=init_state, split=split)
     return matches, c
 
 
@@ -110,7 +116,7 @@ def cea_scan_multi(class_ids: torch.Tensor, m_all: torch.Tensor,
                    finals_q: torch.Tensor, c0: torch.Tensor, *,
                    init_mask: torch.Tensor, epsilon: int,
                    start_pos: Union[int, torch.Tensor] = 0,
-                   inplace: bool = False
+                   inplace: bool = False, split: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Packed multi-query windowed scan over precomputed classes.
 
@@ -119,9 +125,11 @@ def cea_scan_multi(class_ids: torch.Tensor, m_all: torch.Tensor,
     (T, B, Q) f32, c_final (B, W, S) f32).  Count windows, ANY semantics,
     one scalar ``start_pos`` for every lane.  CUDA tensors launch the scan
     kernel (:data:`repro_torch.kernels.cea_scan.MULTI`); CPU tensors run
-    the plain version.  ``inplace=True`` updates ``c0``.
+    the plain version.  ``inplace=True`` updates ``c0``.  ``split`` as in
+    :func:`cea_scan`.
     """
     start = _scalar_start(start_pos, "cea_scan_multi")
+    _check_scan_split(split, c0)
     if not _on_cuda(class_ids, "cea_scan_multi"):
         matches, c_fin = ref.cea_scan_multi(class_ids, m_all, finals_q, c0,
                                             init_mask=init_mask,
@@ -130,8 +138,15 @@ def cea_scan_multi(class_ids: torch.Tensor, m_all: torch.Tensor,
     c = c0 if inplace else c0.clone()
     matches = scan_kernels.MULTI(class_ids, m_all, finals_q, c,
                                  epsilon=epsilon, start=start,
-                                 init_mask=init_mask)
+                                 init_mask=init_mask, split=split)
     return matches, c
+
+
+def _check_scan_split(split: Optional[int], c0: torch.Tensor) -> None:
+    """A forced split must lie in ``1..W`` on every route."""
+    if split is not None:
+        check_split(split, c0.shape[1] if c0.ndim == 3 else 0,
+                    latest=False, consume=False)
 
 
 def _store(c0: torch.Tensor, c_fin: torch.Tensor,
@@ -148,7 +163,8 @@ def unfused_refusal(window: DeviceWindow, start_pos, valid_counts,
     """Why the three-kernel path cannot take a call, or None.
 
     The scan kernels (as the TPU kernels they replace) take count windows,
-    one scalar start for every lane and ANY semantics only."""
+    one scalar start for every lane and ANY semantics only;
+    :func:`cer_pipeline` sends the other calls to the fused route."""
     if window.is_time:
         return "a time window"
     if isinstance(start_pos, (torch.Tensor, np.ndarray)) and \
@@ -203,9 +219,9 @@ def cer_pipeline(attrs: torch.Tensor,
     untouched.
 
     ``impl`` routes fused / unfused / ref (module docstring).  ``split``
-    forces the fused kernel's blocks per lane
-    (:func:`repro_torch.kernels.fused_scan.plan_ring`); it changes no
-    result, so the other routes only check it: every route raises
+    forces the blocks per lane of the scan kernel that runs, fused or
+    packed (:func:`repro_torch.kernels.fused_scan.plan_ring`); it changes
+    no result, so the plain route only checks it: every route raises
     ``ValueError`` for a split with LAST or CONSUME or outside ``1..W``.
     """
     if impl not in IMPLS:
@@ -229,18 +245,13 @@ def cer_pipeline(attrs: torch.Tensor,
         if tuple(event_ts.shape) != (T, B):
             raise ValueError(f"event_ts must be (T, B) = ({T}, {B}) like "
                              f"attrs, got {tuple(event_ts.shape)}")
-    if impl == "unfused":
-        reason = unfused_refusal(window, start_pos, valid_counts, latest_q,
-                                 consume_sq)
-        if reason is None:
-            return _pipeline_unfused(attrs, specs, class_of, m_all,
-                                     finals_q, c0, init_mask, epsilon,
-                                     start_pos, return_trace, inplace)
-        if _on_cuda(attrs, "cer_pipeline"):
-            raise ValueError(
-                f"impl='unfused' takes count windows, one scalar start_pos "
-                f"and ANY semantics; this call has {reason} — use "
-                "impl='fused'")
+    # the reference package sends what the scan kernels do not take to its
+    # fused computation: here the fused kernel, or the plain version below
+    if impl == "unfused" and unfused_refusal(
+            window, start_pos, valid_counts, latest_q, consume_sq) is None:
+        return _pipeline_unfused(attrs, specs, class_of, m_all, finals_q,
+                                 c0, init_mask, epsilon, start_pos,
+                                 return_trace, inplace, split)
 
     if impl == "ref" or attrs.device.type == "cpu":
         return _pipeline_plain(attrs, specs, class_of, m_all, finals_q, c0,
@@ -335,14 +346,16 @@ def _clone_state(state):
 
 
 def _pipeline_unfused(attrs, specs, class_of, m_all, finals_q, c0,
-                      init_mask, epsilon, start_pos, return_trace, inplace):
+                      init_mask, epsilon, start_pos, return_trace, inplace,
+                      split):
     """The three-dispatch path: bits → ``class_of[bits]`` → packed scan."""
     T, B, A = attrs.shape
     bits = bitvector(attrs.reshape(T * B, A), specs)
     class_ids = class_of[bits.long()].reshape(T, B).to(torch.int32)
     matches, c_fin = cea_scan_multi(class_ids, m_all, finals_q, c0,
                                     init_mask=init_mask, epsilon=epsilon,
-                                    start_pos=start_pos, inplace=inplace)
+                                    start_pos=start_pos, inplace=inplace,
+                                    split=split)
     if return_trace:
         return matches, c_fin, class_ids
     return matches, c_fin

@@ -269,6 +269,8 @@ class StreamingVectorEngine:
         self._arena_mirror = tecs_arena.ArenaMirror()
         # time windows: each lane's last timestamp, for the monotone audit
         self._last_ts: Optional[np.ndarray] = None
+        # lanes parked mid-overflow-heal (quarantine)
+        self._quarantined: Tuple[int, ...] = ()
         self._state = self._init_full_state()
 
     def _init_full_state(self):
@@ -298,6 +300,23 @@ class StreamingVectorEngine:
         """Per-lane latched time-window rate-bound flags (all-False for
         count windows)."""
         return wkern.window_overflow(self._state)
+
+    @property
+    def quarantined_lanes(self) -> Tuple[int, ...]:
+        """Lanes parked by :meth:`quarantine` (empty outside a heal)."""
+        return self._quarantined
+
+    def quarantine(self, lanes: Sequence[int]) -> None:
+        """Mark lanes as parked mid-overflow-heal.
+
+        Bookkeeping only: a service stops routing to these lanes while it
+        regrows the ring.  The marks ride the snapshot manifest, so a
+        restore after a crash between quarantine and the completed regrow
+        resumes the heal."""
+        self._quarantined = tuple(sorted({int(b) for b in lanes}))
+
+    def clear_quarantine(self) -> None:
+        self._quarantined = ()
 
     @property
     def compile_count(self) -> int:
@@ -356,6 +375,9 @@ class StreamingVectorEngine:
             "strict_overflow": bool(self.strict_overflow),
             "window_overflow": [int(b) for b in
                                 np.nonzero(self.window_overflow)[0]],
+            # not a compat key: lanes parked mid-overflow-heal, so a
+            # restore after a crash mid-quarantine resumes the regrow
+            "quarantined_lanes": [int(b) for b in self._quarantined],
             "pos": int(self._pos),
             "num_roots": len(self._roots),
             # not a compat key: restore(migrate_packing=True) reads it
@@ -484,6 +506,8 @@ class StreamingVectorEngine:
         if "roots_key" in arrays:
             for k, v in zip(arrays["roots_key"], arrays["roots_val"]):
                 self._roots[(int(k[0]), int(k[1]))] = np.asarray(v, np.int32)
+        self._quarantined = tuple(
+            int(b) for b in meta.get("quarantined_lanes", ()))
 
     def regrow(self, max_window_events: int) -> None:
         """Grow this time window's per-lane rate bound in place (snapshot,
@@ -675,3 +699,4 @@ class StreamingVectorEngine:
         self._last_ts = None
         self._roots.clear()
         self._arena_mirror.invalidate()
+        self._quarantined = ()

@@ -60,9 +60,11 @@ def equal(a, b):
 
 
 # (S, NQ, W-or-size, timed): the 8/16/32-state builds, a ring too large for
-# shared memory (W·S·4 > 227 KB), time windows, several queries
+# shared memory (W·S·4 > 227 KB), time windows, several queries; the wide
+# build (S > 32) and query groups past 8
 CASES = [(5, 1, 7, False), (9, 2, 31, False), (26, 3, 100, False),
-         (15, 1, 4000, False), (7, 2, 9.0, True), (13, 1, 40.0, True)]
+         (15, 1, 4000, False), (7, 2, 9.0, True), (13, 1, 40.0, True),
+         (40, 9, 31, False), (70, 11, 9.0, True), (20, 17, 12, False)]
 
 
 @pytest.mark.parametrize("S,NQ,win,timed", CASES)
@@ -88,10 +90,12 @@ def test_kernel_matches_plain_version(dev, S, NQ, win, timed, latest,
     if consume:
         consume_sq = torch.zeros((NQ, S), device=dev)
         consume_sq[0] = 1.0
+        consume_sq[-1, S // 2:] = 1.0   # a query of the last group
     latest_q = None
     if latest:
         latest_q = torch.zeros(NQ, device=dev)
         latest_q[-1] = 1.0
+        latest_q[NQ // 2] = 1.0
     args = (torch.from_numpy(attrs).to(dev), specs,
             torch.from_numpy(class_of).to(dev),
             ops.class_indicator(class_of, C).to(dev),
@@ -119,10 +123,11 @@ def test_kernel_matches_plain_version(dev, S, NQ, win, timed, latest,
     assert float(got[0].max()) < 2 ** 24
 
 
-# (S, NQ, W, eps): rings that no split of 2, 3 or 5 divides, NQ 1 and 8,
-# the three state builds; eps None is a time window of rate bound W
+# (S, NQ, W, eps): rings that no split of 2, 3 or 5 divides, NQ 1, 8 and
+# past 8, the four state builds; eps None is a time window of rate bound W
 SPLIT_CASES = [(5, 1, 31, 30), (9, 8, 23, 9), (26, 3, 17, 16),
-               (7, 1, 37, None), (13, 8, 29, None)]
+               (7, 1, 37, None), (13, 8, 29, None), (45, 10, 23, 9),
+               (33, 9, 29, None)]
 
 
 @pytest.mark.parametrize("S,NQ,W,eps", SPLIT_CASES)
@@ -240,16 +245,30 @@ def test_streaming_engine_on_card(dev):
 
 
 def test_router_raises_on_what_the_kernel_refuses(dev):
-    B, T, S = 2, 4, 40
+    """Past 512 states and forced splits with LAST, CONSUME or past the
+    ring are refused before any launch; 40 states and 9 queries run."""
+    B, T = 2, 4
     rng = np.random.default_rng(0)
-    specs, class_of, M, finals, init = random_tables(rng, S, 3, 2, 2, 1)
-    with pytest.raises(ValueError, match="det states"):
-        ops.cer_pipeline(
-            torch.zeros((T, B, 2), device=dev), specs,
-            torch.from_numpy(class_of).to(dev), None,
-            torch.from_numpy(M).to(dev), torch.from_numpy(finals).to(dev),
-            torch.zeros((B, 8, S), device=dev),
-            init_mask=torch.from_numpy(init).to(dev), epsilon=3)
+    # 40 states and 9 queries equal the plain version; past 512 states
+    # is refused
+    for S, NQ in ((40, 9), (513, 1)):
+        specs, class_of, M, finals, init = random_tables(rng, S, 3, 2, 2,
+                                                         NQ)
+        args = (torch.from_numpy(rng.normal(size=(T, B, 2)).astype(
+                    np.float32)).to(dev), specs,
+                torch.from_numpy(class_of).to(dev), None,
+                torch.from_numpy(M).to(dev),
+                torch.from_numpy(finals).to(dev),
+                torch.zeros((B, 8, S), device=dev))
+        kw = dict(init_mask=torch.from_numpy(init).to(dev), epsilon=3)
+        if S > 512:
+            with pytest.raises(ValueError, match="det states"):
+                ops.cer_pipeline(*args, **kw)
+            continue
+        got = ops.cer_pipeline(*args, impl="fused", **kw)
+        want = ops.cer_pipeline(*args, impl="ref", **kw)
+        for g, w in zip(got, want):
+            assert equal(g, w)
     # a forced split with LAST or CONSUME, or past the ring, launches nothing
     S, NQ = 6, 2
     specs, class_of, M, finals, init = random_tables(rng, S, 3, 2, 2, NQ)
@@ -290,10 +309,12 @@ ARENA_QUERIES = [
 
 
 def arena_operands(dev, query, mwe, consume, B, T, seed):
-    """Random chunk operands for the builder of ``query``'s tables: a
-    sparse chunk-start cell table, classes, hits only on live steps,
-    a quarter of the lanes at start 0 and some lanes dead."""
-    ve = VectorEngine(query, max_window_events=mwe, device=dev)
+    """Random chunk operands for the builder of ``query``'s tables (a
+    query or a constructed engine): a sparse chunk-start cell table,
+    classes, hits only on live steps, a quarter of the lanes at start 0 and
+    some lanes dead."""
+    ve = (VectorEngine(query, max_window_events=mwe, device=dev)
+          if isinstance(query, str) else query)
     at = ve.arena_tables()
     cap = 1 << 12
     lay = tecs_arena._block_layout(at, ve.ring, ve.epsilon, cap)
@@ -346,6 +367,114 @@ def test_arena_kernel_matches_plain_version(dev, query, mwe, consume,
     assert int(got[1].sum()) > 0
 
 
+# nine standing queries of the Fig. 8 shape (63 states, 9 queries) and a
+# pack padded to 512 states and 16 query slots over few classes
+NINE = ("A1 ; A2 ; A3", "B1 ; B2 ; B3", "B4 ; B5 ; B6", "A1 ; B5 ; A3",
+        "A2 ; B1 ; B6", "B2 ; A3 ; B4", "B3 ; B6 ; A1", "A3 ; A1 ; B2",
+        "B5 ; B4 ; A2")
+
+
+def wide_pack(name, window, device=None, impl=None):
+    from repro_torch.vector import MultiQueryEngine
+    from repro_torch.vector.multiquery import build_packing
+    if name == "nine":
+        queries = [f"SELECT * FROM S WHERE {q} WITHIN {window} events"
+                   for q in NINE]
+        return MultiQueryEngine(queries, device=device, impl=impl)
+    queries = [f"SELECT * FROM S WHERE A1 ; A2+ ; A3 WITHIN {window} events",
+               f"SELECT * FROM S WHERE A2 ; A1 WITHIN {window} events"]
+    return MultiQueryEngine.from_packing(
+        build_packing(queries, pad_states=512, pad_queries=16),
+        device=device, impl=impl)
+
+
+def random_layout_operands(dev, S, Q, K, C, B, T, seed):
+    """Builder operands over random predecessor tables of S states and Q
+    queries (the arena of a padded pack keeps its live states only, so
+    wide layouts are made here)."""
+    rng = np.random.default_rng(seed)
+    W, eps, cap = 6, 5, 1 << 12
+    pidx = rng.integers(0, S, (C, S, K))
+    pmark = rng.random((C, S, K)) < 0.5
+    pvalid = rng.random((C, S, K)) < 0.3
+    pvalid[:, 0] = False
+    finals = rng.random((S, Q)) < 0.2
+    lay = kref.arena_block_layout(W, S, K, Q, eps, cap, (1, 2), finals,
+                                  pmark, pvalid)
+    cid = rng.integers(0, cap, (B, W, S)).astype(np.int32)
+    cid[rng.random((B, W, S)) < 0.7] = -1
+    cells0 = tuple(torch.from_numpy(x).to(dev) for x in (
+        cid, rng.integers(0, 2, (B, W, S)).astype(np.int32),
+        rng.integers(-1, cap, (B, W, S)).astype(np.int32),
+        rng.integers(-1, cap, (B, W, S)).astype(np.int32)))
+    valid = rng.integers(0, T + 1, B)
+    live = np.arange(T)[:, None] < valid[None, :]
+    hits = (rng.random((T, B, Q)) < 0.3) & live[:, :, None]
+    args = (cells0, torch.from_numpy(rng.integers(0, C, (T, B)).astype(
+                np.int32)).to(dev), torch.from_numpy(hits).to(dev),
+            torch.from_numpy(rng.integers(0, 10 ** 6, B)).to(dev),
+            torch.from_numpy(valid).to(dev))
+    kw = dict(lay=lay, ptab=torch.from_numpy(kref.pack_pred_tables(
+                  pidx, pmark, pvalid)).to(dev),
+              finals_sq=torch.from_numpy(finals.astype(np.int32)).to(dev))
+    return args, kw, lay
+
+
+@pytest.mark.parametrize("pack", ["nine", "S100Q10", "S512Q3"])
+@pytest.mark.parametrize("consume,n_seg", [(False, 1), (True, 2)])
+def test_wide_pack_arena_kernel_matches_plain_version(dev, pack, consume,
+                                                      n_seg):
+    """Packs past 32 states or 8 queries through the builder: the chain
+    loop takes query q on warp q % 8."""
+    B, T = 5, 32
+    if pack == "nine":
+        args, kw, lay = arena_operands(dev, wide_pack(pack, 9, device=dev),
+                                       None, consume, B, T, seed=n_seg)
+        assert (lay.S, lay.Q) == (63, 9)
+    else:
+        S, Q = (100, 10) if pack == "S100Q10" else (512, 3)
+        args, kw, lay = random_layout_operands(dev, S, Q, 3, 4, B, T,
+                                               seed=S + n_seg)
+        if consume:
+            kw["consume"] = torch.from_numpy(
+                np.random.default_rng(S).random((T, B, S)) < 0.05).to(dev)
+    launches = arena_update.KERNEL.launches
+    got = ops.arena_block_update(*args, n_seg=n_seg, impl="fused", **kw)
+    torch.cuda.synchronize()
+    assert arena_update.KERNEL.launches == launches + 1
+    want = ops.arena_block_update(*args, n_seg=n_seg, impl="ref", **kw)
+    for g, w in zip(got[0] + got[1:], want[0] + want[1:]):
+        assert torch.equal(g, w)
+    assert int((got[4] >= 0).sum()) > 0
+
+
+@pytest.mark.parametrize("pack", ["nine", "pad512"])
+def test_wide_pack_engines_on_card(dev, pack):
+    """A packed engine past 32 states and 8 queries on the card, fused and
+    unfused and with the arena, equals the plain route and the CPU run."""
+    B, T = 6, 32
+    types = ["A1", "A2", "A3"] + [f"B{i}" for i in range(1, 7)]
+    streams = [random_stream(StreamSpec(types, seed=b), 3 * T)
+               for b in range(B)]
+    runs, states = {}, {}
+    for name, device, impl, cap in (("fused", None, "fused", None),
+                                    ("unfused", None, "unfused", None),
+                                    ("arena", None, "fused", 1 << 12),
+                                    ("plain", None, "ref", None),
+                                    ("cpu", "cpu", "fused", None)):
+        se = StreamingVectorEngine(wide_pack(pack, 40, device, impl), T, B,
+                                   arena_capacity=cap)
+        runs[name] = [se.feed([s[i * T:(i + 1) * T] for s in streams])
+                      for i in range(3)]
+        states[name] = (se.state["C"] if cap else se.state).cpu()
+    assert sum(int(c.sum()) for c, _ in runs["cpu"]) > 0
+    for name in ("fused", "unfused", "arena", "plain"):
+        for (ck, hk), (cp, hp) in zip(runs[name], runs["cpu"]):
+            np.testing.assert_array_equal(ck, cp)
+            assert hk == hp
+        assert torch.equal(states[name], states["cpu"])
+
+
 def test_arena_streaming_engine_on_card(dev):
     """Chunks through both kernels equal the plain route and the CPU run,
     node store included; the library is loaded once; enumerations equal
@@ -381,6 +510,8 @@ def test_arena_streaming_engine_on_card(dev):
 
 
 def test_arena_router_raises_on_what_the_kernel_refuses(dev):
+    """Past 512 states and int32 id overflow are refused; 40 states
+    run."""
     B, T, S = 2, 4, 40
     pm = np.zeros((1, S, 1), bool)
     pv = np.zeros((1, S, 1), bool)
@@ -390,13 +521,28 @@ def test_arena_router_raises_on_what_the_kernel_refuses(dev):
     cells = tuple(torch.full((B, 8, S), -1, dtype=torch.int32, device=dev)
                   for _ in range(4))
     cls = torch.zeros((T, B), dtype=torch.int32, device=dev)
-    hits = torch.zeros((T, B, 1), dtype=torch.int32, device=dev)
+    hits = torch.ones((T, B, 1), dtype=torch.int32, device=dev)
     ptab = torch.zeros((1, S, 1, 3), dtype=torch.int32, device=dev)
     fin = torch.from_numpy(finals.astype(np.int32)).to(dev)
     lay = kref.arena_block_layout(8, S, 1, 1, 3, 64, (1,), finals, pm, pv)
+    # 40 states equal the plain version
+    got = ops.arena_block_update(cells, cls, hits, 0, T, lay=lay, ptab=ptab,
+                                 finals_sq=fin, impl="fused")
+    want = ops.arena_block_update(cells, cls, hits, 0, T, lay=lay,
+                                  ptab=ptab, finals_sq=fin, impl="ref")
+    for g, w in zip(got[0] + got[1:], want[0] + want[1:]):
+        assert torch.equal(g, w)
+    S = 513
+    lay = kref.arena_block_layout(8, S, 1, 1, 3, 64, (1,),
+                                  np.zeros((S, 1), bool),
+                                  np.zeros((1, S, 1), bool),
+                                  np.zeros((1, S, 1), bool))
     with pytest.raises(ValueError, match="det states"):
-        ops.arena_block_update(cells, cls, hits, 0, T, lay=lay, ptab=ptab,
-                               finals_sq=fin)
+        ops.arena_block_update(
+            tuple(torch.full((B, 8, S), -1, dtype=torch.int32, device=dev)
+                  for _ in range(4)), cls, hits, 0, T, lay=lay,
+            ptab=torch.zeros((1, S, 1, 3), dtype=torch.int32, device=dev),
+            finals_sq=torch.zeros((S, 1), dtype=torch.int32, device=dev))
     S = 4
     lay = kref.arena_block_layout(8, S, 1, 1, 3, 2 ** 31 - 10, (1,),
                                   finals[:S], pm[:, :S], pv[:, :S])
@@ -449,10 +595,12 @@ def scan_tables(rng, S, C, NQ, branching=True):
     return M, finals, init
 
 
-# (S, NQ, eps, W): the 8/16/32 buckets; rings of exactly ε+1, padded, and
-# one too large for shared memory (W·S·4 > 227 KB)
+# (S, NQ, eps, W): the 8/16/32 buckets and the wide build; rings of
+# exactly ε+1, padded, and one too large for one block's shared memory
+# (W·S·4 > 227 KB, split over two blocks); query groups past 8
 SCAN_CASES = [(5, 1, 6, 7), (12, 3, 9, 16), (28, 4, 40, 41),
-              (20, 8, 3000, 3001)]
+              (20, 8, 3000, 3001), (40, 9, 6, 7), (100, 12, 30, 31),
+              (24, 19, 8, 9)]
 
 
 @pytest.mark.parametrize("S,NQ,eps,W", SCAN_CASES)
@@ -483,6 +631,86 @@ def test_scan_kernels_match_plain_version(dev, S, NQ, eps, W, start):
     assert float(got[0].max()) < 2 ** 24
     # the input ring is left untouched without inplace
     assert torch.equal(cuda[4].cpu(), cpu[4])
+
+
+# (S, NQ, eps, W, split): rings of exactly ε+1 and padded, a split that
+# plan_ring trims (W=7, split 5 → 4 blocks), the four state builds, query
+# groups past 8
+SCAN_SPLIT_CASES = [(5, 1, 6, 7, 2), (5, 2, 6, 7, 5), (12, 3, 9, 23, 3),
+                    (28, 4, 7, 8, 3), (20, 9, 30, 31, 4),
+                    (40, 10, 12, 13, 3), (70, 2, 6, 29, 5)]
+
+
+@pytest.mark.parametrize("S,NQ,eps,W,split", SCAN_SPLIT_CASES)
+def test_forced_scan_split_matches_plain_version(dev, S, NQ, eps, W, split):
+    """Both scan entries with a lane's ring split over blocks: matches and
+    ring equal the plain version exactly, with start 0, the seed and expiry
+    slots on the first and last slot of every segment, and a chunked
+    carry."""
+    from repro_torch.kernels.fused_scan import plan_ring, segments
+    rng = np.random.default_rng(S * 11 + NQ + split)
+    B, T, C = 7, 48, 6
+    M, finals, init = scan_tables(rng, S, C, NQ, branching=eps < 10)
+    _, n = plan_ring(W, S, False, 10 ** 6, latest=False, consume=False,
+                     split=split)
+    assert n == -(-W // -(-W // split))
+    starts = [0]
+    for a, b in segments(W, n):
+        starts += [a, b - 1, a + eps + 1, b - 1 + W * 7919]
+    ids = torch.from_numpy(rng.integers(0, C, (T, B)).astype(
+        np.int32)).to(dev)
+    c0 = (rng.random((B, W, S)) < 0.05).astype(np.float32)
+    c0[:, :, 0] = 0.0
+    Mt, ft, it, c0 = (torch.from_numpy(x).to(dev)
+                      for x in (M, finals, init, c0))
+    for start in starts:
+        for name, kern in (("multi", cea_scan.MULTI),
+                           ("single", cea_scan.SINGLE)):
+            def run(i, c, s, split_=split, impl="kernel"):
+                cc = c.cpu() if impl == "plain" else c
+                ii = i.cpu() if impl == "plain" else i
+                mm, ff = ((Mt.cpu(), ft.cpu()) if impl == "plain"
+                          else (Mt, ft))
+                if name == "multi":
+                    return ops.cea_scan_multi(
+                        ii, mm, ff, cc, init_mask=it.to(cc.device),
+                        epsilon=eps, start_pos=s, split=split_)
+                return ops.cea_scan(ii, mm, ff[0], cc, epsilon=eps,
+                                    start_pos=s, split=split_)
+            launches = kern.launches
+            got = run(ids, c0, start)
+            torch.cuda.synchronize()
+            assert kern.launches == launches + 1
+            assert kern.last_plan == (True, n)
+            want = run(ids, c0, start, impl="plain")
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w)
+            m1, c1 = run(ids[:20], c0, start)
+            m2, c2 = run(ids[20:], c1, start + 20)
+            assert torch.equal(torch.cat([m1, m2]), got[0])
+            assert torch.equal(c2, got[1])
+            assert float(got[0].max()) < 2 ** 24
+
+
+def test_scan_default_split_matches_plain_version(dev):
+    """A ring too large for one block's shared memory splits by default
+    (plan_ring's smallest n_split whose share fits)."""
+    rng = np.random.default_rng(3)
+    S, NQ, eps, W, B, T, C = 28, 3, 3000, 3001, 5, 24, 6
+    M, finals, init = scan_tables(rng, S, C, NQ, branching=False)
+    ids = rng.integers(0, C, (T, B)).astype(np.int32)
+    c0 = (rng.random((B, W, S)) < 0.01).astype(np.float32)
+    cuda = [torch.from_numpy(x).to(dev) for x in (ids, M, finals, init, c0)]
+    got = ops.cea_scan_multi(*cuda[:3], cuda[4], init_mask=cuda[3],
+                             epsilon=eps, start_pos=77)
+    torch.cuda.synchronize()
+    use_smem, n = cea_scan.MULTI.last_plan
+    assert use_smem and n >= 2
+    want = ops.cea_scan_multi(*[x.cpu() for x in cuda[:3]], cuda[4].cpu(),
+                              init_mask=cuda[3].cpu(), epsilon=eps,
+                              start_pos=77)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
 
 
 def test_unfused_pipeline_and_engines_on_card(dev):
@@ -518,6 +746,10 @@ def test_unfused_pipeline_and_engines_on_card(dev):
 
 
 def test_unfused_routers_raise_on_what_the_kernels_refuse(dev):
+    """The scan routers refuse what the reference also refuses (past 512
+    states, no query, a short ring, per-lane offsets, a split past the
+    ring); scans past 32 states and 8 queries, and the unfused calls the
+    scan kernels do not take, equal the plain version."""
     rng = np.random.default_rng(1)
     T, B = 4, 2
     ids = torch.zeros((T, B), dtype=torch.int32, device=dev)
@@ -530,9 +762,11 @@ def test_unfused_routers_raise_on_what_the_kernels_refuse(dev):
             torch.zeros((B, W, S), device=dev),
             init_mask=torch.from_numpy(init).to(dev), epsilon=eps, **kw)
     with pytest.raises(ValueError, match="det states"):
-        scan(33, 1, 8, 3)
+        scan(513, 1, 8, 3)
     with pytest.raises(ValueError, match="queries"):
-        scan(12, 9, 8, 3)
+        scan(12, 0, 8, 3)
+    with pytest.raises(ValueError, match="1..8"):
+        scan(12, 2, 8, 3, split=9)
     with pytest.raises(ValueError, match="ring"):
         scan(12, 2, 3, 3)
     with pytest.raises(ValueError, match="scalar start_pos"):
@@ -540,27 +774,57 @@ def test_unfused_routers_raise_on_what_the_kernels_refuse(dev):
     with pytest.raises(ValueError, match="at most 31"):
         ops.bitvector(torch.zeros((3, 1), device=dev),
                       [(0, 0, 0.0)] * 32)
-    # unfused cer_pipeline calls the scan kernels do not take
+    # 33 states and 9 queries: both scan entries equal the plain version
+    for S, NQ in ((33, 1), (12, 9)):
+        M, finals, init = scan_tables(rng, S, 2, NQ)
+        ids_r = torch.from_numpy(rng.integers(0, 2, (T, B)).astype(
+            np.int32))
+        c0 = torch.from_numpy((rng.random((B, 8, S)) < 0.3).astype(
+            np.float32))
+        got = ops.cea_scan_multi(
+            ids_r.to(dev), torch.from_numpy(M).to(dev),
+            torch.from_numpy(finals).to(dev), c0.to(dev),
+            init_mask=torch.from_numpy(init).to(dev), epsilon=3)
+        want = ops.cea_scan_multi(
+            ids_r, torch.from_numpy(M), torch.from_numpy(finals), c0,
+            init_mask=torch.from_numpy(init), epsilon=3)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    # unfused cer_pipeline calls the scan kernels do not take go to the
+    # fused kernel, as the reference package sends them to its fused
+    # computation: one fused launch, nothing else, ≡ impl="fused"
     S, C, A, k = 6, 3, 2, 2
     specs, class_of, M, finals, init = random_tables(rng, S, C, A, k, 2)
-    args = (torch.zeros((T, B, A), device=dev), specs,
+    args = (torch.from_numpy(rng.normal(size=(T, B, A)).astype(
+                np.float32)).to(dev), specs,
             torch.from_numpy(class_of).to(dev), None,
             torch.from_numpy(M).to(dev), torch.from_numpy(finals).to(dev))
-    c0 = torch.zeros((B, 8, S), device=dev)
+    c0 = torch.from_numpy((rng.random((B, 8, S)) < 0.3).astype(
+        np.float32)).to(dev)
     init_t = torch.from_numpy(init).to(dev)
-    for kw, reason in (
-            (dict(start_pos=torch.zeros(B, dtype=torch.int32, device=dev)),
-             "per-lane start_pos"),
-            (dict(valid_counts=torch.full((B,), T, device=dev)),
-             "valid_counts"),
-            (dict(latest_q=torch.ones(2, device=dev)), "LAST"),
-            (dict(consume_sq=torch.ones((2, S), device=dev)), "CONSUME")):
-        with pytest.raises(ValueError, match=reason):
-            ops.cer_pipeline(*args, c0, init_mask=init_t, epsilon=5,
-                             impl="unfused", **kw)
     window = wkern.DeviceWindow.time(5.0, max_window_events=8)
-    with pytest.raises(ValueError, match="time window"):
-        ops.cer_pipeline(*args, wkern.init_state(window, B, S, dev),
-                         init_mask=init_t, window=window,
-                         event_ts=torch.zeros((T, B), device=dev),
-                         impl="unfused")
+    calls = [
+        dict(epsilon=5, start_pos=torch.tensor([3, 0], dtype=torch.int32,
+                                               device=dev)),
+        dict(epsilon=5, valid_counts=torch.tensor([T, 1], device=dev)),
+        dict(epsilon=5, latest_q=torch.ones(2, device=dev)),
+        dict(epsilon=5, consume_sq=torch.ones((2, S), device=dev)),
+        dict(window=window, event_ts=torch.arange(
+            T * B, dtype=torch.float32, device=dev).reshape(T, B))]
+    for kw in calls:
+        state = (wkern.init_state(window, B, S, dev) if "window" in kw
+                 else c0)
+        n_fused = fused_scan.KERNEL.launches
+        n_other = bitvector.KERNEL.launches + cea_scan.MULTI.launches
+        got = ops.cer_pipeline(*args, state, init_mask=init_t,
+                               impl="unfused", **kw)
+        torch.cuda.synchronize()
+        assert fused_scan.KERNEL.launches == n_fused + 1
+        assert bitvector.KERNEL.launches + cea_scan.MULTI.launches == \
+            n_other
+        fused = ops.cer_pipeline(*args, state, init_mask=init_t,
+                                 impl="fused", **kw)
+        plain = ops.cer_pipeline(*args, state, init_mask=init_t, impl="ref",
+                                 **kw)
+        for g, f, p in zip(got, fused, plain):
+            assert equal(g, f) and equal(g, p)

@@ -297,8 +297,8 @@ def test_contract_errors():
 
 
 @pytest.mark.parametrize("limit,kw", [
-    ("predicates", dict(k=15)), ("queries", dict(NQ=9)),
-    ("queries", dict(NQ=0)), ("det states", dict(S=33)),
+    ("predicates", dict(k=15)), ("queries", dict(NQ=-1)),
+    ("queries", dict(NQ=0)), ("det states", dict(S=513)),
     ("epsilon", dict(W=8, epsilon=8))])
 def test_kernel_refuses_shapes_before_launch(limit, kw):
     args = dict(T=4, B=2, S=7, NQ=1, k=3, W=16, epsilon=5, timed=False)

@@ -308,8 +308,8 @@ def test_scan_inplace_and_refusals():
                              start_pos=torch.zeros(2, dtype=torch.int64))
     # the kernel wrappers check shapes, then refuse CPU tensors, before they
     # build anything
-    for kw in (dict(S=33, NQ=1, W=8, epsilon=3), dict(S=5, NQ=9, W=8,
-                                                      epsilon=3),
+    for kw in (dict(S=513, NQ=1, W=8, epsilon=3), dict(S=5, NQ=0, W=8,
+                                                       epsilon=3),
                dict(S=5, NQ=1, W=3, epsilon=3)):
         with pytest.raises(ValueError):
             t_scan.check_launchable(T=4, B=2, **kw)
