@@ -25,13 +25,18 @@ then runs these phases, each printing one JSON line:
 4. LAST; per-lane offsets, valid counts and the trace with CONSUME on a
    ring kept in global memory by one block (D5), and with 26 states (K5):
    kernel ≡ plain;
-5. enumeration at full width: the phase-1 query with the tECS arena
-   (``arena_capacity=2**18``, M = 57 738 record slots per event), 64 lanes,
-   8 chunks of 256 through both kernels; node store, cells, pointers and
-   roots ≡ the plain engine's; lane 0 (rare A1-A3) enumerates what the
-   host ``Engine`` finds; sampled hits of the other lanes enumerate their
-   count; the arena kernel's time, bound and plain time, the feed's split
-   and the enumeration rate;
+5. enumeration: the phase-1 query with the tECS arena
+   (``arena_capacity=2**18``, M = 57 738 layout slots per event), 64 lanes,
+   8 chunks of 256 through the fused-scan kernel and the arena_update
+   store kernel (one launch each per chunk, no dense launch); node store,
+   cells, pointers and roots ≡ the plain engine's; lane 0 (rare A1-A3)
+   enumerates what the host ``Engine`` finds; sampled hits of the other
+   lanes enumerate their count; on one more chunk the store kernel ≡ its
+   plain version, and the old route (dense records with their fill, then
+   the chunk-level translation) ≡ the store kernel; the store kernel's
+   time, bound (from the nodes it allocates) and plain time, the old
+   route's times and bound, the feed's split, peak memory and the
+   enumeration rate;
 6. time window and CONSUME with the arena: stock Q1 and Q3 at ring 4096,
    16 lanes; store ≡ plain, lane 0 ≡ host ``Engine``;
 7. the other shapes through ``ops.arena_block_update``: LAST with native
@@ -63,7 +68,13 @@ then runs these phases, each printing one JSON line:
     unfused feed (the wide build, split over blocks), plain on the last
     chunk; each query ≡ its closed form on 8 lanes; kernel times and
     bound, feed times, both ``n_split``; then the nine-query arena at a
-    window of 300 events, 16 lanes (Q = 9, S = 63).
+    window of 300 events, 16 lanes (Q = 9, S = 63);
+12. enumeration at phase 1's width: phase 5's query and draws at 1024
+    lanes (5.4 GB node store), 8 chunks through the store kernel; 64 lanes
+    spread over the 1024 (lane 0 among them) ≡ a plain engine fed their
+    columns, counts and hits ≡ an engine without the arena, lane 0 ≡ the
+    host ``Engine``; feed time and events/s, the store kernel's time and
+    bound on one more chunk (≡ plain), peak memory, sampled enumeration.
 
 Then the kernels line and, last, ``{"ok": true, "device": {...}}``.  Every
 comparison of kernel and plain version is exact (tolerance 0): counts are
@@ -547,37 +558,242 @@ def host_clock(fn):
     return out, time.perf_counter() - t0
 
 
+def timed_ms(setup, fn, reps: int) -> float:
+    """Mean device time of ``fn(*setup())`` over ``reps`` calls after one
+    warm-up; ``setup`` (restoring the state ``fn`` updates in place) runs
+    outside the timed window."""
+    total = 0.0
+    for i in range(reps + 1):
+        args = setup()
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn(*args)
+        t1.record()
+        torch.cuda.synchronize()
+        if i:
+            total += t0.elapsed_time(t1)
+    return total / reps
+
+
+def arena_bound(nodes, B, T, W, S, K, Q, folded):
+    """Least time of one store-route chunk from what its inputs need: the
+    nodes allocated (5 int32 fields each), the (id, is-union, left, right)
+    cell table read and written once, the step operands (class, hits,
+    position, start/valid, roots) and the slot starts; integer work of
+    about 8 operations per folded (step, slot, state, predecessor edge),
+    twice (count and emit pass), at the f32 non-tensor rate.  Returns
+    (ms, "bytes"|"operations", bytes, ops)."""
+    nbytes = (20 * nodes + 2 * 4 * B * W * S * 4 + 4 * T * B * (4 + 2 * Q)
+              + 4 * B * W)
+    ops_n = 2 * 8 * folded * S * K
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops_n / PEAK_F32_FLOP_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops_n)
+
+
+def folded_slot_steps(cell0, cell1, T):
+    """Folded (step, slot) pairs of one chunk, estimated from the data: the
+    occupied ring slots at the chunk's start and end, averaged, plus the
+    seeded slot of each step."""
+    occ = [int((c != -1).any(dim=2).sum()) for c in (cell0, cell1)]
+    return T * (sum(occ) / 2 + cell0.shape[0])
+
+
+def arena_chunk(kern, ve, chunk, B, T, cap, what, dense=False):
+    """One more chunk of a store-route engine, from its saved state: the
+    counting kernel, the cell gather and the store kernel timed one at a
+    time (host clock), the store kernel ≡ its plain version (node store,
+    cells, pointers, latches, roots), the kernel alone timed on the card
+    and its bound; ``dense`` also runs and times the old route (dense
+    records with their fill, then the chunk-level translation) and holds
+    it against the store kernel."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.arena_update import KERNEL as AKERNEL
+    from repro_torch.kernels import ref
+    from repro_torch.vector import tecs_arena
+    dev = ve.device
+    tb, at = ve.tables, ve.arena_tables()
+    lay = tecs_arena._block_layout(at, ve.ring, ve.epsilon, cap)
+    kw = dict(lay=lay, ptab=tecs_arena._ptab(at, dev),
+              finals_sq=tecs_arena._finals(at, dev))
+    start = kern.position % ve.ring
+    startv = torch.full((B,), start, dtype=torch.int32, device=dev)
+    validv = torch.full((B,), T, dtype=torch.int32, device=dev)
+    gpos = (kern.position + torch.arange(T, dtype=torch.int32, device=dev)
+            )[:, None].expand(T, B).contiguous()
+    c_state = clone_state(kern.state["C"])
+    saved = kern.state["arena"]
+    ar = {k: v.clone() for k, v in saved.items()}
+    (m_f, _, trace), s_count = host_clock(lambda: ops.cer_pipeline(
+        chunk, ve.encoder.specs, tb.class_of, tb.class_ind, tb.m_all,
+        tb.finals[None, :], c_state, init_mask=tb.init_mask,
+        window=ve.window, start_pos=start, impl="fused", return_trace=True,
+        inplace=True))
+    hits = (m_f > 0.5)[..., :1]
+
+    def restore(a):
+        for k, v in saved.items():
+            a[k].copy_(v)
+        return a
+    (cells0, sstart0), s_cells = host_clock(
+        lambda: tecs_arena.chunk_cells(ar))
+    roots, s_kernel = host_clock(lambda: ops.arena_store_update(
+        ar, cells0, sstart0, trace, hits, gpos, startv, validv,
+        impl="fused", **kw))
+    ar_p = {k: v.clone() for k, v in saved.items()}
+    c_p, s_p = tecs_arena.chunk_cells(ar_p)
+    roots_p = ops.arena_store_update(ar_p, c_p, s_p, trace, hits, gpos,
+                                     startv, validv, impl="ref", **kw)
+    err = max_abs_err(roots, roots_p)
+    for k in ar:
+        check(torch.equal(ar[k], ar_p[k]), f"{what}: arena_update store "
+              f"kernel ≡ plain on one chunk ({k})")
+        err = max(err, max_abs_err(ar[k], ar_p[k]))
+    check(torch.equal(roots, roots_p), f"{what}: store kernel roots ≡ "
+          "plain")
+    check(not bool(ar["ovf"].any()), f"{what}: arena ovf stays clear")
+    nodes = int((ar["ptr"] - saved["ptr"]).sum())
+    folded = folded_slot_steps(saved["cell"], ar["cell"], T)
+    del ar_p, c_p, s_p
+
+    def host_side():
+        counts = m_f[:, :, 0].cpu().numpy().astype(np.int64)
+        hs = [(kern.position + int(t), int(b))
+              for t, b in zip(*np.nonzero(counts))]
+        roots_np = roots.cpu().numpy()
+        return {h: roots_np[h[0] - kern.position, h[1]] for h in hs}
+    recorded, s_host = host_clock(host_side)
+
+    # the kernel alone (step operands prepared once) and the route
+    xs, _ = ref.segment_operands(cells0, trace, hits, startv, validv,
+                                 lay=lay, n_seg=1)
+    fin_np = kw["finals_sq"].cpu().numpy()
+
+    def setup():
+        return tecs_arena.chunk_cells(restore(ar))
+    ms = timed_ms(setup, lambda c0, s0: AKERNEL(
+        ar, c0, s0, xs[:4], gpos, lay=lay, ptab=kw["ptab"],
+        finals_sq=fin_np), reps=3)
+    # where the kernel's time goes: the same chunk without hits (no roots,
+    # no chain), and from an empty arena (one seeded slot a step, so
+    # mostly the per-step fixed cost)
+    xs_nohit = (xs[0], torch.zeros_like(xs[1])) + tuple(xs[2:4])
+    no_hits_ms = timed_ms(setup, lambda c0, s0: AKERNEL(
+        ar, c0, s0, xs_nohit, gpos, lay=lay, ptab=kw["ptab"],
+        finals_sq=fin_np), reps=2)
+
+    def setup_empty():
+        tecs_arena.reset_arena(ar)
+        return tecs_arena.chunk_cells(ar)
+    empty_ms = timed_ms(setup_empty, lambda c0, s0: AKERNEL(
+        ar, c0, s0, xs_nohit, gpos, lay=lay, ptab=kw["ptab"],
+        finals_sq=fin_np), reps=2)
+    route_ms = timed_ms(setup, lambda c0, s0: ops.arena_store_update(
+        ar, c0, s0, trace, hits, gpos, startv, validv, impl="fused", **kw),
+        reps=3)
+    plain_ms = timed_ms(setup, lambda c0, s0: ops.arena_store_update(
+        ar, c0, s0, trace, hits, gpos, startv, validv, impl="ref", **kw),
+        reps=1)
+    W, S, K, Q = ve.ring, at.num_states, at.max_indegree, 1
+    bound = arena_bound(nodes, B, T, W, S, K, Q, folded)
+    out = {"nodes_allocated": nodes, "folded_slot_steps": folded,
+           "kernel_ms_per_chunk": ms, "route_ms_per_chunk": route_ms,
+           "kernel_ms_without_hits": no_hits_ms,
+           "kernel_ms_from_empty_arena": empty_ms,
+           "plain_ms_per_chunk": plain_ms, "bound_ms": bound[0],
+           "bound_by": bound[1], "bound_bytes": bound[2],
+           "bound_int_ops": bound[3], "max_abs_err": err,
+           "feed_steps_ms": {"counting_kernel": 1e3 * s_count,
+                             "cell_gather": 1e3 * s_cells,
+                             "arena_store_kernel": 1e3 * s_kernel,
+                             "host_counts_hits_roots": 1e3 * s_host,
+                             "hits": len(recorded)}}
+    if not dense:
+        return out
+    # the old route from the same state: dense records (with their fill)
+    # and the chunk-level translation; ≡ the store kernel
+    cells_d, sstart_d = tecs_arena.chunk_cells(restore(ar))
+    got, s_dense = host_clock(lambda: ops.arena_block_update(
+        cells_d, trace, hits, startv, validv, impl="fused", **kw))
+    (_, roots_d), s_store = host_clock(
+        lambda: tecs_arena._arena_translate_store(
+            ar, lay, *got, gpos, startv, validv, sstart_d, hits))
+    ar_k = {k: v.clone() for k, v in saved.items()}
+    c_k, s_k = tecs_arena.chunk_cells(ar_k)
+    roots_k = ops.arena_store_update(ar_k, c_k, s_k, trace, hits, gpos,
+                                     startv, validv, impl="fused", **kw)
+    check(all(torch.equal(ar[k], ar_k[k]) for k in ar) and
+          torch.equal(roots_d, roots_k), f"{what}: the old route (dense "
+          "kernel and translation) ≡ the store kernel")
+    del got, ar_k, c_k, s_k
+    dense_ms = cuda_ms(lambda: ops.arena_block_update(
+        cells_d, trace, hits, startv, validv, impl="fused", **kw), reps=2)
+    got = ops.arena_block_update(cells_d, trace, hits, startv, validv,
+                                 impl="fused", **kw)
+    translate_ms = timed_ms(lambda: (restore(ar),), lambda a: (
+        tecs_arena._arena_translate_store(a, lay, *got, gpos, startv,
+                                          validv, sstart_d, hits)), reps=2)
+    del got
+    rec_bytes = 3 * B * T * lay.M * 4
+    old_bytes = (rec_bytes + B * T * Q * 4 * 2 + 2 * 4 * B * W * S * 4
+                 + 4 * T * B * 4 + at.pred_idx.size * 3 * 4)
+    out.update(dense_kernel_ms_per_chunk=dense_ms,
+               translate_ms_per_chunk=translate_ms,
+               old_route_ms_per_chunk=dense_ms + translate_ms,
+               old_route_steps_ms={"dense_kernel_with_fill": 1e3 * s_dense,
+                                   "translate_and_store": 1e3 * s_store},
+               dense_bound_ms=1e3 * old_bytes / PEAK_BYTES_PER_S,
+               dense_bound_bytes=old_bytes, record_bytes=rec_bytes)
+    return out
+
+
+def enum_draws(ve, seed, B, T, n_chunks, types):
+    """Uniform draws over ``types``; lane 0 draws A1-A3 rarely (1 % each),
+    so the host Engine can enumerate every one of its matches."""
+    rng = np.random.default_rng(seed)
+    draws = rng.integers(0, len(types), (n_chunks * T, B))
+    draws[:, 0] = rng.choice(len(types), n_chunks * T,
+                             p=[0.01] * 3 + [0.97 / 6] * 6)
+    codes = np.array([ve.encoder.vocab["type"].get(t, -1.0)
+                      for t in types], np.float32)
+    attrs_all = torch.from_numpy(codes[draws][:, :, None]).to(ve.device)
+    return draws, [attrs_all[i * T:(i + 1) * T] for i in range(n_chunks)]
+
+
+def enum_sample(kern, hits_k, counts_k, T, what):
+    """Enumerate 32 hits of the second chunk (lanes past 0): each yields
+    its count of complex events.  Returns (hits, complex events, first
+    sync s, enumeration s)."""
+    sample = [h for h in hits_k if T <= h[0] < 2 * T and h[1] > 0][:32]
+    _, s_sync = host_clock(kern.arena_snapshot)
+    res, s_enum = host_clock(lambda: kern.enumerate_hits(sample))
+    n_ces = 0
+    for (p, b), ces in res.items():
+        check(len(ces) == counts_k[p, b], f"{what}: hit {(p, b)} "
+              f"enumerates {len(ces)} of {counts_k[p, b]} matches")
+        n_ces += len(ces)
+    return len(sample), n_ces, s_sync, s_enum
+
+
 def phase_enum(seed: int, B: int = 64, n_chunks: int = 8) -> dict:
     """The phase-1 query with the arena: B=64, ring 3208, M=57 738."""
     from repro_torch.core.events import Event
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.arena_update import KERNEL as AKERNEL
-    from repro_torch.kernels.fused_scan import KERNEL as FKERNEL
     from repro_torch.vector import (StreamingVectorEngine, VectorEngine,
                                     tecs_arena)
     T, eps, cap = 256, 3200, 1 << 18
     query = MAIN_QUERY.format(eps)
     types = ["A1", "A2", "A3"] + [f"B{i}" for i in range(1, 7)]
     ve = VectorEngine(query)
-    dev = ve.device
-    rng = np.random.default_rng(seed + 5)
-    draws = rng.integers(0, len(types), (n_chunks * T, B))
-    # lane 0 draws A1-A3 rarely (1 % each), so the host Engine can
-    # enumerate every one of its matches
-    draws[:, 0] = rng.choice(len(types), n_chunks * T,
-                             p=[0.01] * 3 + [0.97 / 6] * 6)
-    codes = np.array([ve.encoder.vocab["type"].get(t, -1.0)
-                      for t in types],
-                     np.float32)
-    attrs_all = torch.from_numpy(codes[draws][:, :, None]).to(dev)
-    chunks = [attrs_all[i * T:(i + 1) * T] for i in range(n_chunks)]
+    draws, chunks = enum_draws(ve, seed + 5, B, T, n_chunks, types)
     kern = StreamingVectorEngine(ve, T, B, arena_capacity=cap)
     plain = StreamingVectorEngine(VectorEngine(query, impl="ref"), T, B,
                                   arena_capacity=cap)
 
     torch.cuda.synchronize()
-    FKERNEL.launches = 0
-    AKERNEL.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_launches()
     feed_s, counts_k, hits_k = [], [], []
     for attrs in chunks:
         t0 = time.perf_counter()
@@ -585,13 +801,15 @@ def phase_enum(seed: int, B: int = 64, n_chunks: int = 8) -> dict:
         feed_s.append(time.perf_counter() - t0)
         counts_k.append(c)
         hits_k += h
-    launches = {"fused_scan": FKERNEL.launches,
-                "arena_update": AKERNEL.launches}
-    check(all(n == n_chunks for n in launches.values()),
-          f"phase 5 launched {launches}, expected {n_chunks} of each")
+    launches = read_launches(counters)
+    want = {k: 0 for k in launches}
+    want.update(fused_scan=n_chunks, arena_update=n_chunks)
+    check(launches == want, f"phase 5 launched {launches}, expected one "
+          "fused_scan and one arena_update store launch per chunk")
     check(kern.compile_count == 1, f"compile_count {kern.compile_count}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
 
-    # the plain engine, chunk by chunk: one chunk's records live at a time
+    # the plain engine, chunk by chunk
     counts_p, hits_p = [], []
     for attrs in chunks:
         c, h = plain.feed_attrs(attrs)
@@ -610,99 +828,132 @@ def phase_enum(seed: int, B: int = 64, n_chunks: int = 8) -> dict:
     lane0 = [Event(types[i], {}, position=p, timestamp=float(p))
              for p, i in enumerate(draws[:, 0])]
     lane0_ces = lane0_check(kern, hits_k, query, lane0, "phase 5")
-    sample = [h for h in hits_k if T <= h[0] < 2 * T and h[1] > 0][:32]
-    _, s_sync = host_clock(kern.arena_snapshot)
-    res, s_enum = host_clock(lambda: kern.enumerate_hits(sample))
-    n_ces = 0
-    for (p, b), ces in res.items():
-        check(len(ces) == counts_k[p, b], f"phase 5: hit {(p, b)} "
-              f"enumerates {len(ces)} of {counts_k[p, b]} matches")
-        n_ces += len(ces)
+    n_hits, n_ces, s_sync, s_enum = enum_sample(kern, hits_k, counts_k, T,
+                                                "phase 5")
     snap = kern.arena_snapshot()
     for b in (0, 1, 2):
         tecs_arena.check_invariants(snap, b)
 
-    # the arena kernel alone, on the next chunk from the saved state
-    tb, at = ve.tables, ve.arena_tables()
+    # the arena kernels alone, on the next chunk from the saved state
+    one = arena_chunk(kern, ve, chunks[0], B, T, cap, "phase 5", dense=True)
+    at = ve.arena_tables()
     lay = tecs_arena._block_layout(at, ve.ring, ve.epsilon, cap)
-    kw = dict(lay=lay, ptab=tecs_arena._ptab(at, dev),
-              finals_sq=tecs_arena._finals(at, dev))
-    start = kern.position % ve.ring
-    startv = torch.full((B,), start, dtype=torch.int32, device=dev)
-    validv = torch.full((B,), T, dtype=torch.int32, device=dev)
-    c_state = clone_state(kern.state["C"])
-    ar = {k: v.clone() for k, v in arena.items()}
-    (m_f, _, trace), s_count = host_clock(lambda: ops.cer_pipeline(
-        chunks[0], ve.encoder.specs, tb.class_of, tb.class_ind, tb.m_all,
-        tb.finals[None, :], c_state, init_mask=tb.init_mask,
-        window=ve.window, start_pos=start, impl="fused", return_trace=True,
-        inplace=True))
-    hits = (m_f > 0.5)[..., :1]
-    (cells0, sstart0), s_cells = host_clock(
-        lambda: tecs_arena.chunk_cells(ar))
-
-    def build(impl):
-        return ops.arena_block_update(cells0, trace, hits, startv, validv,
-                                      impl=impl, **kw)
-    got, s_kernel = host_clock(lambda: build("fused"))
-    want = build("ref")
-    err = 0.0
-    for g, w in zip(got[0] + got[1:], want[0] + want[1:]):
-        check(torch.equal(g, w), "phase 5: arena_update kernel ≡ plain on "
-              "one chunk")
-        err = max(err, max_abs_err(g, w))
-    del want
-    gpos = (kern.position + torch.arange(T, dtype=torch.int32, device=dev)
-            )[:, None].expand(T, B)
-    (_, roots), s_store = host_clock(lambda: tecs_arena._arena_translate_store(
-        ar, lay, *got, gpos, startv, validv, sstart0, hits))
-    del got
-
-    def host_side():
-        counts = m_f[:, :, 0].cpu().numpy().astype(np.int64)
-        hs = [(kern.position + int(t), int(b))
-              for t, b in zip(*np.nonzero(counts))]
-        roots_np = roots.cpu().numpy()
-        return {h: roots_np[h[0] - kern.position, h[1]] for h in hs}
-    recorded, s_host = host_clock(host_side)
-    ms = cuda_ms(lambda: build("fused"), reps=3)
-    plain_ms = cuda_ms(lambda: build("ref"), reps=1)
-
-    # bound: bytes moved once — records dominate (3·B·T·M·4)
-    W, S, K, Q, M = ve.ring, at.num_states, at.max_indegree, 1, lay.M
-    rec_bytes = 3 * B * T * M * 4
-    nbytes = (rec_bytes + B * T * Q * 4 * 2 + 2 * 4 * B * W * S * 4
-              + 4 * T * B * 4 + at.pred_idx.size * 3 * 4)
-    # integer work: per live (step, slot, target, edge) a few operations
-    ops_n = 8 * T * B * W * S * K
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops_n / PEAK_F32_FLOP_PER_S
-    bound_ms = 1e3 * max(t_bytes, t_ops)
     feed_med = float(np.median(feed_s))
     result = {
         "phase": 5, "query": query, "B": B, "T": T, "chunks": n_chunks,
-        "W": W, "S": S, "K": K, "M": M, "arena_capacity": cap,
-        "launches": launches, "compile_count": kern.compile_count,
+        "W": ve.ring, "S": at.num_states, "K": at.max_indegree, "M": lay.M,
+        "arena_capacity": cap, "launches": launches,
+        "compile_count": kern.compile_count,
         "matches": int(counts_k.sum()), "hits": len(hits_k),
         "max_ptr": max_ptr, "lane0_complex_events": lane0_ces,
-        "kernel_ms_per_chunk": ms, "plain_ms_per_chunk": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bound_bytes": nbytes, "record_bytes": rec_bytes,
-        "bound_int_ops": ops_n,
         "feed_ms_per_chunk_median": 1e3 * feed_med,
         "feed_ms_per_chunk": [1e3 * x for x in feed_s],
         "events_per_s": B * T / feed_med,
-        "feed_steps_ms": {"counting_kernel": 1e3 * s_count,
-                          "cell_gather": 1e3 * s_cells,
-                          "arena_kernel_with_fill": 1e3 * s_kernel,
-                          "translate_and_store": 1e3 * s_store,
-                          "host_counts_hits_roots": 1e3 * s_host,
-                          "hits": len(recorded)},
-        "enum_hits": len(sample), "enum_complex_events": n_ces,
+        "enum_hits": n_hits, "enum_complex_events": n_ces,
         "enum_first_sync_ms": 1e3 * s_sync, "enum_ms": 1e3 * s_enum,
         "enum_complex_events_per_s": n_ces / s_enum if s_enum else None,
-        "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
-        "max_abs_err": err}
+        "peak_mem_GB": peak,
+        "peak_mem_GB_with_checks": torch.cuda.max_memory_allocated() / 1e9}
+    result.update(one)
+    emit(result)
+    return result
+
+
+def phase_enum_wide(seed: int, B: int = 1024, n_chunks: int = 8,
+                    n_check: int = 64) -> dict:
+    """Enumeration at phase 1's width: phase 5's query and draws at 1024
+    lanes through the store kernel; 64 lanes (lane 0 among them) ≡ a plain
+    engine fed their columns, counts and hits ≡ an engine without the
+    arena, lane 0 ≡ the host Engine."""
+    from repro_torch.core.events import Event
+    from repro_torch.vector import StreamingVectorEngine, VectorEngine
+    T, eps, cap = 256, 3200, 1 << 18
+    query = MAIN_QUERY.format(eps)
+    types = ["A1", "A2", "A3"] + [f"B{i}" for i in range(1, 7)]
+    ve = VectorEngine(query)
+    draws, chunks = enum_draws(ve, seed + 15, B, T, n_chunks, types)
+    kern = StreamingVectorEngine(ve, T, B, arena_capacity=cap)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_launches()
+    feed_s, counts_k, hits_k = [], [], []
+    for attrs in chunks:
+        t0 = time.perf_counter()
+        c, h = kern.feed_attrs(attrs)
+        feed_s.append(time.perf_counter() - t0)
+        counts_k.append(c)
+        hits_k += h
+    launches = read_launches(counters)
+    want = {k: 0 for k in launches}
+    want.update(fused_scan=n_chunks, arena_update=n_chunks)
+    check(launches == want, f"phase 12 launched {launches}, expected one "
+          "fused_scan and one arena_update store launch per chunk")
+    check(kern.compile_count == 1, f"compile_count {kern.compile_count}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    counts_k = np.concatenate(counts_k)
+    arena = kern.state["arena"]
+    check(not bool(arena["ovf"].any()), "phase 12: arena ovf stays clear")
+
+    # counts and hits ≡ the engine without the arena
+    counting = StreamingVectorEngine(VectorEngine(query), T, B)
+    out = [counting.feed_attrs(a) for a in chunks]
+    check(same(np.concatenate([c for c, _ in out]), counts_k) and
+          [h for _, hs in out for h in hs] == hits_k,
+          "phase 12: counts and hits ≡ the engine without the arena")
+    check(same(counting.state, kern.state["C"]),
+          "phase 12: count state ≡ the engine without the arena")
+    del counting, out
+
+    # 64 lanes spread over the 1024, lane 0 among them, ≡ a plain engine
+    # fed their columns (lanes are independent)
+    rng = np.random.default_rng(seed + 16)
+    lanes = [0] + sorted(int(x) for x in rng.choice(np.arange(1, B),
+                                                    n_check - 1,
+                                                    replace=False))
+    plain = StreamingVectorEngine(VectorEngine(query, impl="ref"), T,
+                                  n_check, arena_capacity=cap)
+    idx = torch.tensor(lanes, device=ve.device)
+    for attrs in chunks:
+        plain.feed_attrs(attrs[:, idx].contiguous())
+    pa = plain.state["arena"]
+    for name in ("kind", "pos", "maxs", "left", "right", "cell", "ptr",
+                 "ovf"):
+        check(torch.equal(arena[name][idx], pa[name]),
+              f"phase 12: {name} of 64 sampled lanes ≡ the plain engine")
+    where = {b: i for i, b in enumerate(lanes)}
+    mine = {(p, where[b]): v for (p, b), v in kern._roots.items()
+            if b in where}
+    check(mine.keys() == plain._roots.keys() and all(
+        np.array_equal(mine[k], plain._roots[k]) for k in mine),
+        "phase 12: roots of 64 sampled lanes ≡ the plain engine")
+    del plain, pa
+
+    lane0 = [Event(types[i], {}, position=p, timestamp=float(p))
+             for p, i in enumerate(draws[:, 0])]
+    lane0_ces = lane0_check(kern, hits_k, query, lane0, "phase 12")
+    n_hits, n_ces, s_sync, s_enum = enum_sample(kern, hits_k, counts_k, T,
+                                                "phase 12")
+    one = arena_chunk(kern, ve, chunks[0], B, T, cap, "phase 12")
+    feed_med = float(np.median(feed_s))
+    result = {
+        "phase": 12, "query": query, "B": B, "T": T, "chunks": n_chunks,
+        "W": ve.ring, "arena_capacity": cap,
+        "store_GB": 5 * B * (cap + 1) * 4 / 1e9,
+        "cell_table_MB_per_buffer": 4 * B * ve.ring * 7 * 4 / 1e6,
+        "launches": launches, "compile_count": kern.compile_count,
+        "matches": int(counts_k.sum()), "hits": len(hits_k),
+        "max_ptr": int(arena["ptr"].max()),
+        "lane0_complex_events": lane0_ces, "checked_lanes": n_check,
+        "feed_ms_per_chunk_median": 1e3 * feed_med,
+        "feed_ms_per_chunk": [1e3 * x for x in feed_s],
+        "events_per_s": B * T / feed_med,
+        "enum_hits": n_hits, "enum_complex_events": n_ces,
+        "enum_first_sync_ms": 1e3 * s_sync, "enum_ms": 1e3 * s_enum,
+        "enum_complex_events_per_s": n_ces / s_enum if s_enum else None,
+        "peak_mem_GB": peak,
+        "peak_mem_GB_with_checks": torch.cuda.max_memory_allocated() / 1e9}
+    result.update(one)
     emit(result)
     return result
 
@@ -843,6 +1094,7 @@ def reset_launches() -> dict:
     from repro_torch.kernels import fused_scan
     counters = {"fused_scan": fused_scan.KERNEL,
                 "arena_update": arena_update.KERNEL,
+                "arena_update_dense": arena_update.DENSE,
                 "bitvector": bitvector.KERNEL,
                 "cea_scan": cea_scan.SINGLE,
                 "cea_scan_multi": cea_scan.MULTI}
@@ -898,6 +1150,7 @@ def phase_unfused(seed: int, main_run: dict, B: int = 1024,
         hits_u += h
     feed_launches = read_launches(counters)
     check(feed_launches == {"fused_scan": 0, "arena_update": 0,
+                            "arena_update_dense": 0,
                             "bitvector": n_chunks, "cea_scan": 0,
                             "cea_scan_multi": n_chunks},
           f"phase 8 unfused feed launched {feed_launches}")
@@ -933,6 +1186,7 @@ def phase_unfused(seed: int, main_run: dict, B: int = 1024,
         counts_s.append(m.cpu().numpy().astype(np.int64))
     scan_launches = read_launches(counters)
     check(scan_launches == {"fused_scan": 0, "arena_update": 0,
+                            "arena_update_dense": 0,
                             "bitvector": n_chunks, "cea_scan": n_chunks,
                             "cea_scan_multi": 0},
           f"phase 8 classify + scan launched {scan_launches}")
@@ -1709,6 +1963,7 @@ def main() -> None:
     packed_res = phase_packed(args.seed)
     phase_edges(args.seed)
     nine_res = phase_nine(args.seed)
+    wide_res = phase_enum_wide(args.seed)
     unf = unf_res["kernels"]
     emit({"kernels": [{
         "name": "fused_scan", "route": "cuda",
@@ -1730,12 +1985,18 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/arena_update.cu",
         "replaces": "src/repro/kernels/arena_update.py:88",
         "launches": enum_res["launches"]["arena_update"],
-        "max_abs_err": enum_res["max_abs_err"],
+        "max_abs_err": max(enum_res["max_abs_err"],
+                           wide_res["max_abs_err"]),
         "ms": enum_res["kernel_ms_per_chunk"],
         "plain_ms": enum_res["plain_ms_per_chunk"],
         "bound_ms": enum_res["bound_ms"],
         "bound_by": enum_res["bound_by"],
-        "library_ms": None}, {
+        "library_ms": None,
+        "dense_ms": enum_res["dense_kernel_ms_per_chunk"],
+        "dense_bound_ms": enum_res["dense_bound_ms"],
+        "phase12_ms": wide_res["kernel_ms_per_chunk"],
+        "phase12_bound_ms": wide_res["bound_ms"],
+        "phase12_launches": wide_res["launches"]["arena_update"]}, {
         "name": "bitvector", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bitvector.cu",
         "replaces": "src/repro/kernels/bitvector.py:45",

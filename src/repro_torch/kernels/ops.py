@@ -16,7 +16,9 @@ point of the device CER pipeline:
   them: the fused kernel on CUDA, the plain version on the CPU.
 * ``impl="ref"`` — the plain version on whatever device the tensors lie on.
 
-:func:`arena_block_update` routes the block tECS builder the same way.
+:func:`arena_store_update` routes the block tECS builder that writes the
+node store (the engines' route) the same way, and :func:`arena_block_update`
+the builder that emits the TPU kernel's dense records (segmented chunks).
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import torch
 
 from . import cea_scan as scan_kernels
 from . import ref
+from .arena_update import DENSE as ARENA_DENSE
 from .arena_update import KERNEL as ARENA_KERNEL
 from .bitvector import KERNEL as BITVECTOR_KERNEL
 from .bitvector import check_specs
@@ -329,7 +332,7 @@ def arena_block_update(cells0, class_ids: torch.Tensor, hits, start,
     extra = list(xs[5:])
     exp_s = extra.pop(0) if expire is not None else None
     con_s = extra.pop(0) if consume is not None else None
-    cells_fin, recs, roots = ARENA_KERNEL(
+    cells_fin, recs, roots = ARENA_DENSE(
         cells0_seg, xs[:5], lay=lay, ptab=ptab,
         finals_sq=torch.as_tensor(finals_sq).cpu().numpy(), expire=exp_s,
         consume=con_s)
@@ -337,6 +340,61 @@ def arena_block_update(cells0, class_ids: torch.Tensor, hits, start,
                                 tuple(r.movedim(0, 1) for r in recs),
                                 roots.movedim(0, 1), T, B, lay=lay,
                                 n_seg=n_seg)
+
+
+def arena_store_update(arena: dict, cells0, sstart0, class_ids: torch.Tensor,
+                       hits, gpos: torch.Tensor, start, valid_counts, *,
+                       lay: ref.ArenaBlockLayout, ptab: torch.Tensor,
+                       finals_sq, expire: Optional[torch.Tensor] = None,
+                       consume: Optional[torch.Tensor] = None,
+                       impl: str = "fused") -> torch.Tensor:
+    """Block tECS builder over one chunk that allocates node ids itself and
+    writes the node store: the Hopper store kernel or its plain version.
+
+    arena: the node store dict, updated in place (``kind``, ``pos``,
+    ``maxs``, ``left``, ``right``, ``cell``, ``ptr``, ``ovf``).  cells0 and
+    sstart0: the chunk-start cell table and slot starts
+    (``vector.tecs_arena.chunk_cells``; ``cells0[0]`` is the arena's own
+    ``cell`` tensor).  class_ids/gpos: (T, B) int32; hits: (T, B, Q);
+    start/valid_counts: scalars or (B,); expire (T, B, W) and consume
+    (T, B, S) optional masks.  Returns the roots (T, B, Q) in real ids,
+    NULL where no hit.  Ids, stores and roots equal
+    :func:`arena_block_update` followed by the chunk-level translation.
+
+    CUDA tensors with ``impl="fused"`` launch the store kernel
+    (:data:`repro_torch.kernels.arena_update.KERNEL`), which raises
+    ``ValueError`` for shapes it does not take; CPU tensors or
+    ``impl="ref"`` run :func:`ref.arena_store_ref`.  No fallback.
+    """
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    T, B = class_ids.shape
+    dev = class_ids.device
+    start = ref.lane_vector(start, B, dev).to(torch.int32)
+    valid_counts = ref.lane_vector(valid_counts, B, dev,
+                                   "valid_counts").to(torch.int32)
+    if impl == "ref" or dev.type == "cpu":
+        return ref.arena_store_ref(arena, cells0, sstart0, class_ids, hits,
+                                   gpos, start, valid_counts, lay=lay,
+                                   ptab=ptab, finals_sq=finals_sq,
+                                   expire=expire, consume=consume)
+    if dev.type != "cuda":
+        raise ValueError(f"arena_store_update runs on CUDA or the CPU, got "
+                         f"{dev}")
+    xs, _ = ref.segment_operands(
+        cells0, class_ids, hits, start, valid_counts, lay=lay, n_seg=1,
+        expire=expire, consume=consume)
+    extra = list(xs[5:])
+    exp_s = extra.pop(0) if expire is not None else None
+    con_s = extra.pop(0) if consume is not None else None
+    roots = ARENA_KERNEL(
+        arena, tuple(c.to(torch.int32) for c in cells0),
+        sstart0.to(torch.int32).contiguous(), xs[:4],
+        gpos.to(torch.int32).contiguous(), lay=lay, ptab=ptab,
+        finals_sq=torch.as_tensor(finals_sq).cpu().numpy(), expire=exp_s,
+        consume=con_s)
+    return torch.where(torch.as_tensor(hits, device=dev).bool(),
+                       roots.movedim(0, 1), ref.ARENA_NULL)
 
 
 def _clone_state(state):

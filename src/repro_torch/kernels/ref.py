@@ -156,6 +156,14 @@ def consume_clear(C2: torch.Tensor, m: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def class_rows(M_all: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``M_all[ids]`` as the reference's gather takes it: a negative id
+    counts from the end (adds C), then the id clamps into [0, C−1]."""
+    C = M_all.shape[0]
+    ids = ids.long()
+    return M_all[torch.where(ids < 0, ids + C, ids).clamp(0, C - 1)]
+
+
 def lane_vector(x, B: int, device, name: str = "start_pos") -> torch.Tensor:
     """Scalar or (B,) per-lane operand → (B,) int64 tensor on ``device``."""
     t = torch.as_tensor(x, device=device).to(torch.int64)
@@ -212,7 +220,7 @@ def _scan_multi_count_ref(C0, M_all, class_ids, finals_q, init_mask,
     C = C0
     out = []
     for t in range(class_ids.shape[0]):
-        M = M_all[class_ids[t].long()]                         # (B, S, S)
+        M = class_rows(M_all, class_ids[t])                    # (B, S, S)
         j = start + t
         seed, clear = ring_masks_lanes(j, W, epsilon)
         C2 = C * (1.0 - clear)[:, :, None] + seed[:, :, None] * im
@@ -247,7 +255,7 @@ def _scan_multi_time_ref(C0: dict, M_all, class_ids, finals_q, init_mask,
     ev_ts = torch.as_tensor(event_ts, dtype=torch.float32, device=dev)
     out = []
     for t in range(class_ids.shape[0]):
-        M = M_all[class_ids[t].long()]
+        M = class_rows(M_all, class_ids[t])
         j = start + t
         ts_t = ev_ts[t]
         seed, clear, seed_b, over = ring_masks_time(j, ts_t, tsr, W, size)
@@ -312,7 +320,7 @@ def cea_scan_ref(C0: torch.Tensor, M_all: torch.Tensor,
     out = []
     for t in range(class_ids.shape[0]):
         j = int(start_pos) + t
-        C, m = cea_step_ref(C, M_all[class_ids[t].long()], j % W,
+        C, m = cea_step_ref(C, class_rows(M_all, class_ids[t]), j % W,
                             (j - epsilon - 1) % W, finals, init_state)
         out.append(m)
     return C, torch.stack(out) if out else C0.new_zeros((0, B))
@@ -366,8 +374,10 @@ def cea_scan_multi(class_ids: torch.Tensor, m_all: torch.Tensor,
 # is-union flag, left, right) and emits a fixed layout of M node records on
 # *virtual* ids: the node allocated at (event t, layout slot m) has id
 # ``voffset + t·M + m`` with ``voffset = capacity + 1``, so virtual ids never
-# collide with real store ids.  The caller turns the validity mask into real
-# ids with one chunk-level cumsum (``vector.tecs_arena.arena_scan_block``).
+# collide with real store ids.  Real ids follow the validity mask in (event,
+# slot) order: :func:`arena_store_ref` ranks each event's mask as it goes and
+# writes the store; the segmented route takes one chunk-level cumsum after
+# :func:`arena_build_ref` (``vector.tecs_arena._arena_translate_store``).
 # Layout slots run over target states that can statically allocate there, in
 # the per-event reference fold's allocation order, so node stores come out
 # bit-identical to it.
@@ -902,6 +912,92 @@ def arena_build_ref(cells0, class_ids, hits, start, valid_counts, *,
     return assemble_records(cells, tuple(r.movedim(0, 1) for r in recs),
                             roots.movedim(0, 1), *class_ids.shape,
                             lay=lay, n_seg=n_seg)
+
+
+def arena_store_ref(arena: dict, cells0, sstart0, class_ids, hits, gpos,
+                    start, valid_counts, *, lay: ArenaBlockLayout,
+                    ptab: torch.Tensor, finals_sq: torch.Tensor, expire=None,
+                    consume=None) -> torch.Tensor:
+    """Block tECS builder writing the node store directly — the plain
+    version of the store kernel.
+
+    arena: the node store dict (``kind/pos/maxs/left/right`` (B, cap+1),
+    ``cell`` (B, W, S), ``ptr``, ``ovf``), updated in place.  cells0: the
+    chunk-start cell table ``(id, is-union, left, right)`` and sstart0 the
+    (B, W) start of each ring slot (``vector.tecs_arena.chunk_cells``).
+    class_ids/gpos: (T, B) int32; hits: (T, B, Q); start/valid_counts: (B,)
+    int32; expire/consume as in :func:`arena_build_ref`.
+
+    Per step, :func:`arena_block_step` folds on step-local virtual ids
+    ``voffset + m``; the exclusive prefix of its validity mask ranks the
+    allocated slots, slot m gets the real id ``ptr + rank(m)`` (a
+    reference past capacity clamps to the sink ``cap``), and each record
+    whose real id is at most ``cap`` lands in the store — so only the one
+    landing exactly on ``cap`` writes the sink slot.  ``ptr`` runs on
+    unclamped; at the end it clamps to ``cap`` and ``ovf`` latches a lane
+    that passed it.  Returns the roots (T, B, Q) in real ids, NULL where no
+    hit.  The ids equal the chunk-level allocation of
+    :func:`arena_build_ref` followed by the store translation.
+    """
+    T, B = class_ids.shape
+    W, M, cap, voff = lay.W, lay.M, lay.cap, lay.voffset
+    dev = class_ids.device
+    i32, i64 = torch.int32, torch.int64
+    hits = torch.as_tensor(hits, device=dev).to(i32)
+    start, valid = start.to(i64), valid_counts.to(i64)
+    gpos = gpos.to(i32)
+    finals_sq = finals_sq.to(i32)
+    kind_m = torch.from_numpy(lay.kind_static()).to(dev)
+    pos_ev = torch.from_numpy(lay.pos_is_event()).to(dev)
+    w_m = torch.from_numpy(lay.w_static()).to(dev).long()
+    d_m = torch.from_numpy(lay.d_static()).to(dev).long()
+    vb = torch.full((B,), voff, dtype=i32, device=dev)
+    b_idx = torch.arange(B, device=dev)
+    cells = tuple(c.to(i32) for c in cells0)
+    sstart = sstart0.to(i32).clone()
+    ptr0 = arena["ptr"].to(i64)
+    ptr = ptr0.clone()
+    roots = torch.full((T, B, lay.Q), ARENA_NULL, dtype=i32, device=dev)
+    for t in range(T):
+        live = t < valid
+        j = start + t
+        seed_w = j % W
+        sstart[b_idx, seed_w] = torch.where(live, gpos[t],
+                                            sstart[b_idx, seed_w])
+        cells, (ok, rec_l, rec_r), root = arena_block_step(
+            cells, class_ids[t], hits[t], j, live, vb, lay=lay, ptab=ptab,
+            finals_sq=finals_sq,
+            expire_t=None if expire is None else expire[t],
+            consume_t=None if consume is None else consume[t])
+        ok = ok > 0
+        ok_i = ok.to(i64)
+        real = ptr[:, None] + torch.cumsum(ok_i, dim=1) - ok_i   # (B, M)
+
+        def tr(v):                 # step-local virtual ids → real, clamped
+            g = torch.gather(real, 1, (v - voff).clamp(0, M - 1).long())
+            return torch.where(v >= voff, g.clamp(max=cap), v).to(i32)
+
+        bw, mw = torch.nonzero(ok & (real <= cap), as_tuple=True)
+        rw = real[bw, mw]
+        gp = gpos[t][bw]
+        kinds = kind_m[mw]
+        slot = torch.where(d_m[mw] >= 0, (j[bw] - d_m[mw]) % W, w_m[mw])
+        fields = {"kind": kinds,
+                  "pos": torch.where(pos_ev[mw], gp, ARENA_NULL),
+                  "maxs": torch.where(kinds == BOTTOM, gp,
+                                      sstart[bw, slot]),
+                  "left": tr(rec_l)[bw, mw], "right": tr(rec_r)[bw, mw]}
+        for name, val in fields.items():
+            arena[name][bw, rw] = val.to(i32)
+        cid, cis_u, cleft, cright = (c.reshape(B, -1) for c in cells)
+        cells = tuple(x.reshape(cells[0].shape) for x in
+                      (tr(cid), cis_u, tr(cleft), tr(cright)))
+        roots[t] = torch.where(hits[t] > 0, tr(root), ARENA_NULL)
+        ptr = ptr + ok_i.sum(dim=1)
+    arena["ovf"] |= ptr > cap
+    arena["ptr"].copy_(ptr.clamp(max=cap).to(arena["ptr"].dtype))
+    arena["cell"].copy_(cells[0])
+    return roots
 
 
 def assemble_records(cells_fin, recs, roots, T: int, B: int, *,

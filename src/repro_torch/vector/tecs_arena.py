@@ -12,11 +12,14 @@ decreasing start order), ready for Algorithm 2 on the host
 
 Two implementations with one contract:
 
-* ``"block"`` (:func:`arena_scan_block`, the default): the builder step
-  (:func:`repro_torch.kernels.ops.arena_block_update` — the Hopper kernel
-  on CUDA, the plain version on the CPU) emits fixed-layout node records on
-  virtual ids; one chunk-level cumsum assigns real ids and each store field
-  lands with one batched update per chunk.
+* ``"block"`` (:func:`arena_scan_block`, the default): the builder
+  (:func:`repro_torch.kernels.ops.arena_store_update` — the Hopper store
+  kernel on CUDA, its plain version on the CPU) carries the cell table over
+  the chunk, allocates node ids in the per-event fold's order and writes
+  each node straight into the store.  Segmented chunks (``n_seg > 1``)
+  take the TPU kernel's contract instead: fixed-layout node records on
+  virtual ids, one chunk-level cumsum assigning real ids and one batched
+  store update (:func:`_arena_translate_store`).
 * ``"fold"`` (:func:`arena_scan`): the per-event reference fold, plain
   PyTorch.  Its allocation order is what the block layout replays, so the
   two give bit-identical stores on lanes that do not overflow.
@@ -445,21 +448,15 @@ def arena_scan_block(tables: ArenaTables, arena: dict,
                      n_seg: int = 1) -> Tuple[dict, torch.Tensor]:
     """Block-vectorized :func:`arena_scan` — same contract and results.
 
-    1. The builder step (:func:`repro_torch.kernels.ops.arena_block_update`:
-       the Hopper kernel for CUDA tensors with ``impl="fused"``, the plain
-       version otherwise) carries only the cell table over the chunk and
-       emits fixed-layout node records on virtual ids.
-    2. One chunk-level cumsum of the record-validity mask assigns real ids
-       (the bump allocator, batched); virtual references translate in one
-       pass, overflowing lanes clamp into the sink.
-    3. Each store field lands with one batched update: store ids are
-       monotone in slot order, so each binary-searches its source slot
-       (``torch.searchsorted``) and gathers its record.  ``kind``/``pos``/
-       ``maxs`` decode from the static layout and the closed-form
-       slot-start table.
-
-    With nothing allocated (every step dead) the translation changes
-    nothing, so it runs unconditionally.  Updates ``arena`` in place.
+    With ``n_seg == 1`` (what every engine passes) one call of
+    :func:`repro_torch.kernels.ops.arena_store_update` (the store kernel
+    for CUDA tensors with ``impl="fused"``, its plain version otherwise)
+    folds the chunk, allocates ids and writes the store.  With ``n_seg >
+    1`` the builder (:func:`repro_torch.kernels.ops.arena_block_update`)
+    emits fixed-layout records on virtual ids over ``n_seg`` parallel
+    segments and :func:`_arena_translate_store` assigns real ids with one
+    chunk-level cumsum and updates the store.  Both give the same ids;
+    ``arena`` is updated in place.
     """
     from ..kernels import ops
     T, B = class_ids.shape
@@ -470,13 +467,16 @@ def arena_scan_block(tables: ArenaTables, arena: dict,
     start = kref.lane_vector(start, B, dev).to(torch.int32)
     valid = kref.lane_vector(valid, B, dev, "valid_counts").to(torch.int32)
     gpos = gpos.to(torch.int32)
-
+    kw = dict(lay=lay, ptab=_ptab(tables, dev), finals_sq=_finals(tables, dev),
+              expire=expire, consume=consume, impl=impl)
     cells0, sstart0 = chunk_cells(arena)
+    if n_seg == 1:
+        roots = ops.arena_store_update(arena, cells0, sstart0, class_ids,
+                                       hits, gpos, start, valid, **kw)
+        return arena, roots
     cells_T, rec_valid, rec_left, rec_right, roots_v = \
-        ops.arena_block_update(
-            cells0, class_ids, hits, start, valid, lay=lay,
-            ptab=_ptab(tables, dev), finals_sq=_finals(tables, dev),
-            n_seg=n_seg, expire=expire, consume=consume, impl=impl)
+        ops.arena_block_update(cells0, class_ids, hits, start, valid,
+                               n_seg=n_seg, **kw)
     return _arena_translate_store(arena, lay, cells_T, rec_valid, rec_left,
                                   rec_right, roots_v, gpos, start, valid,
                                   sstart0, hits)
@@ -485,8 +485,13 @@ def arena_scan_block(tables: ArenaTables, arena: dict,
 def _arena_translate_store(arena, lay, cells_T, rec_valid, rec_left,
                            rec_right, roots_v, gpos, start, valid, sstart0,
                            hits):
-    """Steps 2–3 of :func:`arena_scan_block`: bump allocation, virtual-id
-    translation and the batched store update, in place."""
+    """The segmented route of :func:`arena_scan_block` after the builder:
+    bump allocation by one chunk-level cumsum over the record-validity
+    mask, virtual-id translation (overflowing lanes clamp into the sink)
+    and one batched update per store field — each store id binary-searches
+    its source slot (``torch.searchsorted``) and gathers its record;
+    ``kind``/``pos``/``maxs`` decode from the static layout and the
+    closed-form slot-start table.  In place."""
     T, B = gpos.shape
     W = lay.W
     M, Q = lay.M, lay.Q

@@ -355,10 +355,10 @@ def test_arena_kernel_matches_plain_version(dev, query, mwe, consume,
     B, T = 13, 96
     args, kw, lay = arena_operands(dev, query, mwe, consume, B, T,
                                    seed=len(query) + 3 * consume + n_seg)
-    launches = arena_update.KERNEL.launches
+    launches = arena_update.DENSE.launches
     got = ops.arena_block_update(*args, n_seg=n_seg, impl="fused", **kw)
     torch.cuda.synchronize()
-    assert arena_update.KERNEL.launches == launches + 1
+    assert arena_update.DENSE.launches == launches + 1
     want = ops.arena_block_update(*args, n_seg=n_seg, impl="ref", **kw)
     for g, w in zip(got[0], want[0]):
         assert torch.equal(g, w)
@@ -438,10 +438,10 @@ def test_wide_pack_arena_kernel_matches_plain_version(dev, pack, consume,
         if consume:
             kw["consume"] = torch.from_numpy(
                 np.random.default_rng(S).random((T, B, S)) < 0.05).to(dev)
-    launches = arena_update.KERNEL.launches
+    launches = arena_update.DENSE.launches
     got = ops.arena_block_update(*args, n_seg=n_seg, impl="fused", **kw)
     torch.cuda.synchronize()
-    assert arena_update.KERNEL.launches == launches + 1
+    assert arena_update.DENSE.launches == launches + 1
     want = ops.arena_block_update(*args, n_seg=n_seg, impl="ref", **kw)
     for g, w in zip(got[0] + got[1:], want[0] + want[1:]):
         assert torch.equal(g, w)
@@ -507,6 +507,148 @@ def test_arena_streaming_engine_on_card(dev):
             np.testing.assert_array_equal(states["kernel"][k],
                                           states[name][k], err_msg=k)
         assert sets["kernel"] == sets[name]
+
+
+# the store route: (query or pack, max_window_events, capacity, extras).
+# The same queries as the dense sweep, CONSUME, ragged lanes, a capacity
+# that overflows mid-chunk, the nine-query pack and K5 (32 states, K=18).
+STORE_SWEEPS = {
+    "count": (ARENA_QUERIES[0][0], None, 1 << 14, {}),
+    "time": (STOCK_Q1, 40, 1 << 14, {}),
+    "k5": (ARENA_QUERIES[2][0], None, 1 << 14, dict(ragged=True)),
+    "consume": (ARENA_QUERIES[0][0], None, 1 << 14, dict(consume=0.05)),
+    "ragged": (ARENA_QUERIES[0][0], None, 1 << 14, dict(ragged=True)),
+    "overflow": (ARENA_QUERIES[0][0], None, 4000, {}),
+    "nine": ("nine", None, 1 << 14, dict(consume=0.05)),
+}
+
+
+def store_chunks(dev, name, B, T, n_chunks):
+    """Engine tables, an empty arena pair and random chunk operands of a
+    store sweep: classes, hits on live steps only, per-lane starts and
+    valid counts (ragged: some lanes short or dead), time-eviction masks
+    for time windows and CONSUME masks."""
+    query, mwe, cap, extra = STORE_SWEEPS[name]
+    ve = (wide_pack("nine", 9, device=dev) if query == "nine" else
+          VectorEngine(query, max_window_events=mwe, device=dev))
+    at = ve.arena_tables()
+    W, S, Q = ve.ring, at.num_states, at.num_queries
+    rng = np.random.default_rng(len(name))
+    chunks = []
+    for i in range(n_chunks):
+        start = np.full(B, (i * T) % W)
+        valid = np.full(B, T)
+        if extra.get("ragged"):
+            start = (start + rng.integers(0, W, B)) % W
+            valid = rng.integers(0, T + 1, B)
+            valid[-1] = 0
+        live = np.arange(T)[:, None] < valid[None, :]
+        kw = {}
+        if ve.window.is_time:
+            kw["expire"] = torch.from_numpy(rng.random((T, B, W)) < 0.1
+                                            ).to(dev)
+        if "consume" in extra:
+            kw["consume"] = torch.from_numpy(
+                rng.random((T, B, S)) < extra["consume"]).to(dev)
+        chunks.append((
+            torch.from_numpy(rng.integers(0, at.pred_idx.shape[0], (T, B))
+                             .astype(np.int32)).to(dev),
+            (i * T + torch.arange(T, dtype=torch.int32, device=dev)
+             )[:, None].expand(T, B),
+            torch.from_numpy(start.astype(np.int32)).to(dev),
+            torch.from_numpy(valid.astype(np.int32)).to(dev),
+            torch.from_numpy((rng.random((T, B, Q)) < 0.3)
+                             & live[:, :, None]).to(dev), kw))
+    return ve, at, cap, chunks
+
+
+@pytest.mark.parametrize("name", list(STORE_SWEEPS))
+def test_store_kernel_matches_plain_version(dev, name):
+    """The store kernel ≡ its plain version chunk after chunk: node store
+    (sink slot included), cells, pointers, latches and roots; one store
+    launch per chunk and no dense launch."""
+    B, T, n_chunks = 9, 64, 3
+    ve, at, cap, chunks = store_chunks(dev, name, B, T, n_chunks)
+    arenas = {impl: tecs_arena.init_arena(B, cap, ve.ring, at.num_states,
+                                          device=dev)
+              for impl in ("fused", "ref")}
+    latched = []
+    for i, (cls, gpos, start, valid, hits, kw) in enumerate(chunks):
+        launches = (arena_update.KERNEL.launches,
+                    arena_update.DENSE.launches)
+        roots = {}
+        for impl, ar in arenas.items():
+            _, roots[impl] = tecs_arena.arena_scan_block(
+                at, ar, cls, gpos, start, valid, hits, epsilon=ve.epsilon,
+                impl=impl, **kw)
+        torch.cuda.synchronize()
+        assert (arena_update.KERNEL.launches,
+                arena_update.DENSE.launches) == (launches[0] + 1,
+                                                 launches[1])
+        for k, v in arenas["fused"].items():
+            assert torch.equal(v, arenas["ref"][k]), f"{name}@{i}:{k}"
+        assert torch.equal(roots["fused"], roots["ref"]), f"{name}@{i}"
+        latched.append(int(arenas["fused"]["ovf"].sum()))
+    assert int(arenas["fused"]["ptr"].sum()) > 0
+    # the overflow sweep latches some lanes mid-chunk while others stay
+    # under capacity; the others never reach it
+    assert (0 < min(x for x in latched if x) < B if name == "overflow"
+            else not any(latched))
+
+
+def test_store_route_one_launch_per_chunk(dev):
+    """Through StreamingVectorEngine(arena_capacity=…): exactly one store
+    launch and one fused-scan launch per chunk, no dense launch; counts,
+    store and roots ≡ the plain engine."""
+    query = "SELECT * FROM S WHERE A1 ; A2+ ; A3 WITHIN 30 events"
+    B, T = 8, 32
+    streams = [random_stream(StreamSpec(["A1", "A2", "A3", "B1"], seed=b),
+                             3 * T) for b in range(B)]
+    kern = StreamingVectorEngine(VectorEngine(query, device=dev), T, B,
+                                 arena_capacity=1 << 12)
+    plain = StreamingVectorEngine(VectorEngine(query, device=dev,
+                                               impl="ref"), T, B,
+                                  arena_capacity=1 << 12)
+    for i in range(3):
+        before = (arena_update.KERNEL.launches, arena_update.DENSE.launches,
+                  fused_scan.KERNEL.launches)
+        ck, hk = kern.feed([s[i * T:(i + 1) * T] for s in streams])
+        after = (arena_update.KERNEL.launches, arena_update.DENSE.launches,
+                 fused_scan.KERNEL.launches)
+        assert after == (before[0] + 1, before[1], before[2] + 1)
+        cp, hp = plain.feed([s[i * T:(i + 1) * T] for s in streams])
+        np.testing.assert_array_equal(ck, cp)
+        assert hk == hp
+    for k, v in kern.state["arena"].items():
+        assert torch.equal(v, plain.state["arena"][k]), k
+    assert kern._roots.keys() == plain._roots.keys()
+
+
+def test_store_router_raises_past_shared_memory(dev):
+    """A start table and allocation bitmap past the card's shared memory
+    are refused before any launch (the dense route takes the same ring)."""
+    B, T, S, W, cap = 2, 4, 2, 40_000, 64
+    pm = np.zeros((1, S, 1), bool)
+    pv = np.zeros((1, S, 1), bool)
+    pv[0, 1, 0] = True
+    finals = np.zeros((S, 1), bool)
+    finals[1] = True
+    lay = kref.arena_block_layout(W, S, 1, 1, 3, cap, (1,), finals, pm, pv)
+    assert (arena_update.smem_bytes(lay) < arena_update.KERNEL.smem_limit()
+            < arena_update.smem_bytes(lay, store=True))
+    ar = tecs_arena.init_arena(B, cap, W, S, device=dev)
+    cells0, sstart0 = tecs_arena.chunk_cells(ar)
+    launches = arena_update.KERNEL.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.arena_store_update(
+            ar, cells0, sstart0, torch.zeros((T, B), dtype=torch.int32,
+                                             device=dev),
+            torch.ones((T, B, 1), dtype=torch.int32, device=dev),
+            torch.zeros((T, B), dtype=torch.int32, device=dev), 0, T,
+            lay=lay, ptab=torch.from_numpy(kref.pack_pred_tables(
+                np.ones((1, S, 1), np.int32), pm, pv)).to(dev),
+            finals_sq=torch.from_numpy(finals.astype(np.int32)).to(dev))
+    assert arena_update.KERNEL.launches == launches
 
 
 def test_arena_router_raises_on_what_the_kernel_refuses(dev):

@@ -186,6 +186,58 @@ def test_cea_scan_init_state(init_state):
     equal(m_t, m_j)
 
 
+@pytest.mark.parametrize("scan", ["single", "multi_count", "multi_time"])
+def test_plain_scans_clamp_class_ids_as_the_reference(scan):
+    """Class ids outside [0, C) (−5, −1, C, C+3 beside valid ones) take
+    the reference's gather: a negative id adds C, then the id clamps into
+    [0, C−1].  The port's plain scans equal ``repro.kernels.ref``'s."""
+    from repro.kernels import ref as j_ref
+    from repro_torch.kernels import ref as t_ref
+    S, C, B, T, eps = 6, 4, 3, 12, 5
+    rng = np.random.default_rng(41)
+    M, finals = random_tables(rng, S, C)
+    ids = rng.integers(0, C, (T, B)).astype(np.int32)
+    ids[[1, 3, 6, 9], [0, 1, 2, 0]] = [-5, -1, C, C + 3]
+    ids[7] = [-1, C + 3, -5]
+    W = eps + 3
+    c0 = (rng.random((B, W, S)) < 0.2).astype(np.float32)
+    init = np.zeros(S, np.float32)
+    init[1] = 1.0
+    jM, tM = jnp.asarray(M), torch.from_numpy(M)
+    jids, tids = jnp.asarray(ids), torch.from_numpy(ids)
+    if scan == "single":
+        c_j, m_j = j_ref.cea_scan_ref(jnp.asarray(c0), jM, jids,
+                                      jnp.asarray(finals), eps, start_pos=2)
+        c_t, m_t = t_ref.cea_scan_ref(torch.from_numpy(c0), tM, tids,
+                                      torch.from_numpy(finals), eps,
+                                      start_pos=2)
+    elif scan == "multi_count":
+        c_j, m_j = j_ref.cea_scan_multi_ref(
+            jnp.asarray(c0), jM, jids, jnp.asarray(finals[None]),
+            jnp.asarray(init), eps, start_pos=2)
+        c_t, m_t = t_ref.cea_scan_multi_ref(
+            torch.from_numpy(c0), tM, tids, torch.from_numpy(finals[None]),
+            torch.from_numpy(init), eps, start_pos=2)
+    else:
+        ts = np.cumsum(rng.integers(0, 3, (T, B)), axis=0).astype(np.float32)
+        jw = JWindow.time(4.0, max_window_events=W)
+        tw = TWindow.time(4.0, max_window_events=W)
+        st = {"C": c0, "ts": np.full((B, W), -np.inf, np.float32),
+              "ovf": np.zeros(B, bool)}
+        c_j, m_j = j_ref.cea_scan_multi_ref(
+            {k: jnp.asarray(v) for k, v in st.items()}, jM, jids,
+            jnp.asarray(finals[None]), jnp.asarray(init), tw.epsilon,
+            window=jw, event_ts=jnp.asarray(ts))
+        c_t, m_t = t_ref.cea_scan_multi_ref(
+            {k: torch.from_numpy(v) for k, v in st.items()}, tM, tids,
+            torch.from_numpy(finals[None]), torch.from_numpy(init),
+            tw.epsilon, window=tw, event_ts=torch.from_numpy(ts))
+        c_j, c_t = c_j["C"], c_t["C"]
+    assert float(np.asarray(m_j).sum()) > 0
+    equal(m_t, m_j)
+    equal(c_t, c_j)
+
+
 def multi_case(S, C, B, T, NQ, seed):
     rng = np.random.default_rng(seed)
     M, _ = random_tables(rng, S, C)

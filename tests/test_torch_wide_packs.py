@@ -259,16 +259,24 @@ def test_state_buckets(S, bucket):
 
 
 def test_arena_layout_of_the_nine_pack_fits_one_block(nine_packings):
-    """The builder stages its layout tables and one step's predecessor
-    table in shared memory: smem_bytes counts them as layout_table lays
-    them out, and check_launchable refuses what does not fit."""
+    """The builder stages its layout tables, one step's predecessor table,
+    six W-bit slot bitmaps, the step's candidate list and nine scan words
+    in shared memory (63 states stage no pre-fold rows; the store
+    route adds the slot starts and the M-bit allocation bitmap with its
+    word prefix): smem_bytes counts them as layout_table and the kernel
+    lay them out, and check_launchable refuses what does not fit."""
     te = tmq.MultiQueryEngine.from_packing(nine_packings[1], device="cpu")
     at = te.arena_tables()
     lay = tecs_arena._block_layout(at, te.ring, te.epsilon, 1 << 16)
     assert (lay.S, lay.Q) == (63, 9)
     tab = t_arena.layout_table(lay, tecs_arena._finals(at, "cpu"))
     S, K, Q = lay.S, lay.K, lay.Q
-    assert t_arena.smem_bytes(lay) == 4 * (tab.size + S * K * 3 + S + Q)
-    t_arena.check_launchable(lay, 16, smem_limit=H100_LIMIT)
-    with pytest.raises(ValueError, match="shared memory"):
-        t_arena.check_launchable(lay, 16, smem_limit=1024)
+    wb, mb = -(-lay.W // 32), -(-lay.M // 32)
+    dense = 4 * (tab.size + S * K * 3 + S + Q + 6 * wb + lay.W + 9)
+    assert t_arena.smem_bytes(lay) == dense
+    assert t_arena.smem_bytes(lay, store=True) == (
+        dense + 4 * (lay.W + 2 * mb))
+    for store in (False, True):
+        t_arena.check_launchable(lay, 16, smem_limit=H100_LIMIT, store=store)
+        with pytest.raises(ValueError, match="shared memory"):
+            t_arena.check_launchable(lay, 16, smem_limit=1024, store=store)
