@@ -6,10 +6,12 @@
 Run from the root of a checkout, on a machine with a CUDA device, nvcc and
 PyTorch built for CUDA.  It builds the port's kernel library from
 ``src/repro_torch/kernels/csrc/`` (``fused_scan.cu``, ``arena_update.cu``,
-``bitvector.cu`` and ``cea_scan.cu``, one nvcc each, started together),
-then runs these phases, each printing one JSON line:
+``bitvector.cu``, ``cea_scan.cu`` and ``lane_route.cu``, one nvcc each,
+started together), then runs these phases, each printing one JSON line:
 
-0. card: ``nvidia-smi`` name and power limit, versions, library build time;
+0. card: ``nvidia-smi`` name and power limit, versions, library build time,
+   the launch floor (an empty kernel, 1000 launches: one Python call per
+   launch, and back to back from C);
 1. main path at full width: ``A1 ; A2 ; A3 WITHIN 3200 events`` (ring
    3208), 1024 lanes, 8 chunks of 256 through
    ``StreamingVectorEngine.feed_attrs``, the ring whole in one block's
@@ -74,7 +76,25 @@ then runs these phases, each printing one JSON line:
     spread over the 1024 (lane 0 among them) ≡ a plain engine fed their
     columns, counts and hits ≡ an engine without the arena, lane 0 ≡ the
     host ``Engine``; feed time and events/s, the store kernel's time and
-    bound on one more chunk (≡ plain), peak memory, sampled enumeration.
+    bound on one more chunk (≡ plain), peak memory, sampled enumeration;
+13. PARTITION BY at phase 1's width: phase 1's query partitioned by
+    ``uid``, 1024 lanes, 8 chunks of 262 144 interleaved events (keys
+    uniform over 1024 uid values plus 2 % NULL), ``lane_cap`` 384, through
+    ``PartitionedStreamingEngine.feed_keyed``: one lane_route and one
+    fused_scan launch per chunk; chunk 1 allocates every lane, no spill or
+    eviction; counts ≡ each key's closed form at its global positions;
+    router (chunk 1 and steady state) and fused kernel ≡ plain, times,
+    bounds, the feed's steps, peak memory.  Then the same with the arena
+    (5.4 GB node store): counts and hits ≡ the run without it, key 0 ≡ the
+    host ``Engine`` on its substream, sampled hits enumerate their count,
+    the store kernel ≡ plain on one more chunk, its time and bound.  Then
+    exactness: 64 lanes, 96 Zipf-skewed keys, ``lane_cap`` 96, chunks of
+    4096 with the arena, ``evict="lru"`` and ``"none"`` (evictions,
+    capacity and table spills all occur): the router ≡ plain on every
+    chunk, the engine ≡ ``impl="ref"`` (counts, hits, stats, every
+    snapshot leaf, enumerated sets); and the paper's stock Q3 ``PARTITION
+    BY [volume]`` through ``feed(events)`` ≡ plain ≡ the host
+    ``PartitionedEngine``.
 
 Then the kernels line and, last, ``{"ok": true, "device": {...}}``.  Every
 comparison of kernel and plain version is exact (tolerance 0): counts are
@@ -87,6 +107,7 @@ checkout, it exits with an error before doing anything.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import subprocess
 import sys
@@ -209,22 +230,32 @@ def clone_state(state):
 # ---------------------------------------------------------------------------
 
 
-def phase_card() -> str:
+def phase_card():
     from repro_torch.kernels.build import LIBRARY
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    LIBRARY.get()
+    lib = LIBRARY.get()
     ptxas = [ln.strip() for ln in LIBRARY.build_log.splitlines()
              if ln.startswith("==") or "registers" in ln or "spill" in ln]
+    # the launch floor: an empty kernel, one launch per call from Python
+    # (as the wrappers launch), and 1000 launches back to back from C
+    lib.empty_launches.restype = ctypes.c_int
+    lib.empty_launches.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    stream = torch.cuda.current_stream().cuda_stream
+    per_call_ms = cuda_ms(lambda: lib.empty_launches(1, stream), reps=1000)
+    back_to_back_ms = cuda_ms(lambda: lib.empty_launches(1000, stream),
+                              reps=3) / 1000
     emit({"phase": 0, "nvidia_smi": smi,
           "device": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0],
-          "build_s": round(LIBRARY.build_seconds, 3), "ptxas": ptxas})
-    return smi
+          "build_s": round(LIBRARY.build_seconds, 3), "ptxas": ptxas,
+          "launch_floor_ms": {"one_call_per_launch": per_call_ms,
+                              "back_to_back": back_to_back_ms}})
+    return smi, per_call_ms
 
 
 def phase_main(seed: int, B: int = 1024, n_chunks: int = 8):
@@ -1091,13 +1122,14 @@ def phase_enum_shapes(seed: int) -> None:
 def reset_launches() -> dict:
     """Every kernel wrapper's launch counter, set to 0."""
     from repro_torch.kernels import arena_update, bitvector, cea_scan
-    from repro_torch.kernels import fused_scan
+    from repro_torch.kernels import fused_scan, lane_route
     counters = {"fused_scan": fused_scan.KERNEL,
                 "arena_update": arena_update.KERNEL,
                 "arena_update_dense": arena_update.DENSE,
                 "bitvector": bitvector.KERNEL,
                 "cea_scan": cea_scan.SINGLE,
-                "cea_scan_multi": cea_scan.MULTI}
+                "cea_scan_multi": cea_scan.MULTI,
+                "lane_route": lane_route.KERNEL}
     for k in counters.values():
         k.launches = 0
     return counters
@@ -1152,7 +1184,7 @@ def phase_unfused(seed: int, main_run: dict, B: int = 1024,
     check(feed_launches == {"fused_scan": 0, "arena_update": 0,
                             "arena_update_dense": 0,
                             "bitvector": n_chunks, "cea_scan": 0,
-                            "cea_scan_multi": n_chunks},
+                            "cea_scan_multi": n_chunks, "lane_route": 0},
           f"phase 8 unfused feed launched {feed_launches}")
     check(un.compile_count == 1, f"compile_count {un.compile_count}")
     counts_u = np.concatenate(counts_u)
@@ -1188,7 +1220,7 @@ def phase_unfused(seed: int, main_run: dict, B: int = 1024,
     check(scan_launches == {"fused_scan": 0, "arena_update": 0,
                             "arena_update_dense": 0,
                             "bitvector": n_chunks, "cea_scan": n_chunks,
-                            "cea_scan_multi": 0},
+                            "cea_scan_multi": 0, "lane_route": 0},
           f"phase 8 classify + scan launched {scan_launches}")
     check(same(np.concatenate(counts_s), main_run["counts"]) and
           same(state, main_run["ring"]),
@@ -1937,6 +1969,514 @@ def former_refusals(seed: int, dev) -> int:
     return n
 
 
+# ---------------------------------------------------------------------------
+# PARTITION BY: the lane router ahead of the fused-scan and store kernels
+# ---------------------------------------------------------------------------
+
+PART_TYPES = ["A1", "A2", "A3"] + [f"B{i}" for i in range(1, 7)]
+# the paper's stock Q3 with its PARTITION BY clause (benchmarks/cer_paper.py)
+STOCK_Q3_PART = """SELECT * FROM S
+    WHERE SELL AS msft ; BUY AS oracle ; BUY AS csco ; SELL AS amat
+    FILTER msft[name = 'MSFT'] AND oracle[name = 'ORCL'] AND
+    csco[name = 'CSCO'] AND amat[name = 'AMAT']
+    PARTITION BY [volume]
+    WITHIN 30000 [stock_time]
+    CONSUME BY ANY"""
+
+
+def key_table(n: int) -> np.ndarray:
+    """(n + 1,) uint32: the partition hashes of ``user-0`` … and, last,
+    the NULL key (index -1)."""
+    from repro_torch.core.partition import NULL_KEY_HASH, stable_key_hash
+    return np.array([stable_key_hash((f"user-{i}",)) for i in range(n)]
+                    + [NULL_KEY_HASH], np.uint32)
+
+
+def part_draws(seed, L, T, n_chunks):
+    """Keys uniform over L uid values plus 2 % NULL (index -1), types
+    uniform over phase 1's nine; key 0 draws A1-A3 at 1 % each so that the
+    host Engine can enumerate its matches.  Returns (key index, type index,
+    uint32 keys), each (n_chunks, T)."""
+    rng = np.random.default_rng(seed)
+    kidx = rng.integers(0, L, (n_chunks, T))
+    kidx[rng.random((n_chunks, T)) < 0.02] = -1
+    types = rng.integers(0, len(PART_TYPES), (n_chunks, T))
+    rare = kidx == 0
+    types[rare] = rng.choice(len(PART_TYPES), int(rare.sum()),
+                             p=[0.01] * 3 + [0.97 / 6] * 6)
+    return kidx, types, key_table(L)[kidx]
+
+
+def part_closed_form(kidx, types, L, eps):
+    """Counts per global position: the closed form of each key's substream
+    (``seq3_counts``), scattered back to the key's global positions."""
+    k, ty = kidx.reshape(-1), types.reshape(-1)
+    order = np.argsort(k, kind="stable")
+    order = order[k[order] >= 0]
+    bounds = np.searchsorted(k[order], np.arange(L + 1))
+    n_max = int(np.diff(bounds).max())
+    sub = np.full((n_max, L), -1, np.int64)
+    for b in range(L):
+        pos = order[bounds[b]:bounds[b + 1]]
+        sub[:len(pos), b] = np.where(ty[pos] < 3, ty[pos], -1)
+    counts_sub = seq3_counts(sub, eps)
+    out = np.zeros(k.shape[0], np.int64)
+    for b in range(L):
+        pos = order[bounds[b]:bounds[b + 1]]
+        out[pos] = counts_sub[:len(pos), b]
+    return out
+
+
+def part_engine(query, T, L, cap, **kw):
+    from repro_torch.vector import PartitionedStreamingEngine, VectorEngine
+    return PartitionedStreamingEngine(VectorEngine(query), ("uid",), T, L,
+                                      lane_cap=cap, **kw)
+
+
+def route_equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def route_err(a, b) -> float:
+    """Largest absolute difference over every field of two LaneRoutes
+    (lanes, ranks, flags, lane tables, fills)."""
+    return max(max_abs_err(x, y) for x, y in zip(a, b))
+
+
+def part_feed(eng, chunks, keys):
+    """Feed every chunk: (feed seconds, counts, hits, active lanes and the
+    lane table after each feed)."""
+    feed_s, counts, hits, tables = [], [], [], []
+    for attrs, k in zip(chunks, keys):
+        t0 = time.perf_counter()
+        c, h = eng.feed_keyed(attrs, k)
+        feed_s.append(time.perf_counter() - t0)
+        counts.append(c)
+        hits += h
+        tables.append(eng._lane_keys_np().copy())
+    return feed_s, np.concatenate(counts), hits, tables
+
+
+def part_step_operands(eng, attrs, keys_dev):
+    """The fused kernel's operands of one more chunk from the engine's
+    state, without changing it: the route, the scattered attributes and
+    positions (cap, L), each lane's start and fill."""
+    from repro_torch.kernels import ops
+    from repro_torch.vector.partitioned import _lanes_of, _slots
+    st = eng.state
+    L, cap = eng.num_lanes, eng.lane_cap
+    route = ops.lane_route(keys_dev, st["lane_keys"], st["lane_last"],
+                           chunk_idx=eng._chunk_idx, cap=cap)
+    check(not bool(route.evicted.any()), "phase 13: the steady state "
+          "evicts no lane")
+    _, _, slot = _slots(route, L, cap)
+    T = attrs.shape[0]
+    gpos = eng.position + torch.arange(T, dtype=torch.int32,
+                                       device=attrs.device)
+    return {"attrs": _lanes_of(attrs, slot, L, cap, 0.0),
+            "gpos": _lanes_of(gpos, slot, L, cap, -1),
+            "start": st["lane_pos"].clone(), "fill": route.fill}
+
+
+def part_fused(eng, ops_, state, impl="fused", trace=False):
+    from repro_torch.kernels import ops
+    t = eng.engine.tables
+    return ops.cer_pipeline(
+        ops_["attrs"], eng.encoder.specs, t.class_of, t.class_ind, t.m_all,
+        t.finals[None, :], state, init_mask=t.init_mask, window=eng.window,
+        start_pos=ops_["start"], valid_counts=ops_["fill"], impl=impl,
+        return_trace=trace, inplace=True)
+
+
+def phase_part(seed: int, L: int = 1024, T: int = 262144, cap: int = 384,
+               n_chunks: int = 8) -> dict:
+    """PARTITION BY at phase 1's width: 1024 lanes, chunks of 262 144
+    interleaved events, lane_cap 384, without and with the arena."""
+    from repro_torch.core import compile_query
+    from repro_torch.core.engine import Engine
+    from repro_torch.core.events import Event
+    from repro_torch.core.partition import EMPTY_LANE
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fused_scan import KERNEL
+    t_start = time.perf_counter()
+    eps = 3200
+    query = MAIN_QUERY.format(eps)
+    kidx, types, keys = part_draws(seed + 30, L, T, n_chunks)
+    eng = part_engine(query, T, L, cap)
+    dev = eng.device
+    codes = torch.tensor([eng.encoder.vocab["type"].get(x, -1.0)
+                          for x in PART_TYPES], device=dev)
+    chunks = [codes[torch.from_numpy(types[i]).to(dev)][:, None].contiguous()
+              for i in range(n_chunks)]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_launches()
+    feed_s, counts, hits, tables = part_feed(eng, chunks, keys)
+    launches = read_launches(counters)
+    want = {k: 0 for k in launches}
+    want.update(lane_route=n_chunks, fused_scan=n_chunks)
+    check(launches == want, f"phase 13 launched {launches}, expected one "
+          "lane_route and one fused_scan launch per chunk")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(eng.compile_count == 1, f"compile_count {eng.compile_count}")
+    check(int((tables[0] != EMPTY_LANE).sum()) == L and all(
+        np.array_equal(t, tables[0]) for t in tables),
+        "phase 13: chunk 1 allocates all lanes, later chunks none")
+    st = eng.stats
+    check(st.spilled_table == st.spilled_capacity == st.evicted_lanes == 0,
+          f"phase 13: no spill and no eviction, got {st}")
+    closed = part_closed_form(kidx, types, L, eps)
+    check(same(counts, closed) and hits == np.nonzero(closed)[0].tolist(),
+          "phase 13: counts ≡ each key's closed form at its global "
+          "positions")
+    check(counts.max() < EXACT_LIMIT, "counts stay below 2^24")
+
+    # the router alone: kernel ≡ plain on chunk 1 (empty table) and in the
+    # steady state; times
+    keys_dev = ref.key_bits(torch.from_numpy(keys[0])).to(dev)
+    empty = torch.full((L,), EMPTY_LANE, dtype=torch.int64,
+                       device=dev)
+    never = torch.full((L,), -1, dtype=torch.int32, device=dev)
+    lk, ll = eng.state["lane_keys"], eng.state["lane_last"]
+    router = {}
+    for name, table, last in (("chunk1", empty, never),
+                              ("steady", lk, ll)):
+        def call(impl="fused", table=table, last=last):
+            return ops.lane_route(keys_dev, table, last,
+                                  chunk_idx=n_chunks, cap=cap, impl=impl)
+        got = call()
+        plain, s_plain = host_clock(lambda: call("ref"))
+        check(route_equal(got, plain), f"phase 13: lane_route kernel ≡ "
+              f"plain ({name})")
+        router[name] = {"ms": cuda_ms(call, reps=20),
+                        "plain_ms": 1e3 * s_plain,
+                        "max_abs_err": route_err(got, plain)}
+    r_bytes = T * (4 + 4 + 4 + 1) + L * (2 * 4 + 3 * 4 + 1)
+    r_ops = 16 * T
+    r_tb, r_to = r_bytes / PEAK_BYTES_PER_S, r_ops / PEAK_F32_FLOP_PER_S
+
+    # the fused kernel alone on one more chunk: ≡ plain, time and bound
+    ops_ = part_step_operands(eng, chunks[0], keys_dev)
+    m_k, c_k = part_fused(eng, ops_, clone_state(eng.state["C"]))
+    plan = KERNEL.last_plan
+    m_p, c_p = part_fused(eng, ops_, clone_state(eng.state["C"]), "ref")
+    check(same(m_k, m_p) and same(c_k, c_p), "phase 13: fused_scan ≡ plain "
+          "at per-lane starts and fills")
+    err = max(max_abs_err(m_k, m_p), max_abs_err(c_k, c_p))
+    del c_k, c_p, m_p
+    st_t = clone_state(eng.state["C"])
+    fused_ms = cuda_ms(lambda: part_fused(eng, ops_, st_t), reps=5)
+    fused_plain_ms = cuda_ms(lambda: part_fused(eng, ops_, st_t, "ref"),
+                             reps=1)
+    del st_t
+    tab = eng.engine.tables
+    W, S, A = eng.window.ring, tab.num_states, 1
+    idx = torch.tensor([s[0] for s in eng.encoder.specs], device=dev)
+    opc = torch.tensor([s[1] for s in eng.encoder.specs], device=dev)
+    thr = torch.tensor([s[2] for s in eng.encoder.specs], device=dev)
+    cls = ref.class_trace_ref(ops_["attrs"], idx, opc, thr, tab.class_of)
+    live = torch.arange(cap, device=dev)[:, None] < ops_["fill"][None, :]
+    nnz_m = (tab.m_all != 0).sum(dim=(1, 2))
+    flops = 2 * W * (int(nnz_m[cls.long()][live].sum())
+                     + int(live.sum()) * int((tab.finals != 0).sum()))
+    nbytes = 4 * (2 * L * W * S + cap * L * A + cap * L + 2 * L
+                  + tab.m_all.numel() + tab.class_of.numel() + 2 * S)
+    f_tb, f_to = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOP_PER_S
+
+    # where one feed's time goes: the device step, then the host side
+    (counts_f, _, _, stats_t), s_step = host_clock(
+        lambda: eng._step(chunks[0], keys_dev, None, None))
+    stats_np, s_stats = host_clock(lambda: stats_t.cpu().numpy())
+    cnt, s_counts = host_clock(
+        lambda: counts_f.cpu().numpy().astype(np.int64))
+    hit_list, s_hits = host_clock(
+        lambda: (np.nonzero(cnt.sum(axis=-1))[0]).tolist())
+    del counts_f, cnt
+
+    feed_med = float(np.median(feed_s))
+    result = {
+        "phase": 13, "case": "PARTITION BY at phase 1's width",
+        "query": query, "key": "uid", "lanes": L, "T": T, "lane_cap": cap,
+        "chunks": n_chunks, "W": W, "S": S,
+        "ring_MB": L * W * S * 4 / 1e6, "launches": launches,
+        "compile_count": eng.compile_count, "stats": vars(st),
+        "matches": int(counts.sum()), "hits": len(hits),
+        "feed_ms_per_chunk_median": 1e3 * feed_med,
+        "feed_ms_per_chunk": [1e3 * x for x in feed_s],
+        "events_per_s": T / feed_med,
+        "lane_route_ms": router["steady"]["ms"],
+        "lane_route_ms_chunk1": router["chunk1"]["ms"],
+        "lane_route_plain_ms": router["steady"]["plain_ms"],
+        "lane_route_plain_ms_chunk1": router["chunk1"]["plain_ms"],
+        "lane_route_bound_ms": 1e3 * max(r_tb, r_to),
+        "lane_route_bound_by": "bytes" if r_tb >= r_to else "operations",
+        "lane_route_bound_bytes": r_bytes,
+        "lane_route_max_abs_err": max(r["max_abs_err"]
+                                      for r in router.values()),
+        "fused_scan_ms": fused_ms, "fused_scan_plain_ms": fused_plain_ms,
+        "fused_scan_use_smem": plan[0], "fused_scan_n_split": plan[1],
+        "fused_scan_bound_ms": 1e3 * max(f_tb, f_to),
+        "fused_scan_bound_by": "bytes" if f_tb >= f_to else "operations",
+        "live_steps": int(live.sum()), "padded_steps": cap * L,
+        "feed_steps_ms": {"device_step": 1e3 * s_step,
+                          "stats_to_host": 1e3 * s_stats,
+                          "counts_to_host": 1e3 * s_counts,
+                          "hit_list": 1e3 * s_hits,
+                          "hits": len(hit_list)},
+        "host_side_ms": 1e3 * (s_stats + s_counts + s_hits),
+        "peak_mem_GB": peak, "max_abs_err": err,
+        "seconds": time.perf_counter() - t_start}
+    del eng, ops_, m_k
+    torch.cuda.empty_cache()
+
+    # the same configuration with the arena (5.4 GB node store)
+    t_start = time.perf_counter()
+    arena_cap = 1 << 18
+    eng = part_engine(query, T, L, cap, arena_capacity=arena_cap)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_launches()
+    feed_a, counts_a, hits_a, _ = part_feed(eng, chunks, keys)
+    launches_a = read_launches(counters)
+    want.update(arena_update=n_chunks)
+    check(launches_a == want, f"phase 13 arena launched {launches_a}, "
+          "expected one lane_route, fused_scan and arena_update launch per "
+          "chunk")
+    peak_a = torch.cuda.max_memory_allocated() / 1e9
+    check(same(counts_a, counts) and hits_a == hits, "phase 13 arena: "
+          "counts and hits ≡ the run without the arena")
+    arena = eng.state["arena"]
+    check(not bool(arena["ovf"].any()), "phase 13 arena: ovf stays clear")
+
+    # key 0's substream against the host Engine, at global positions
+    t_key0 = time.perf_counter()
+    flat_k, flat_t = kidx.reshape(-1), types.reshape(-1)
+    pos0 = np.nonzero(flat_k == 0)[0]
+    compiled = compile_query(query)
+    host = Engine(compiled.cea, window=compiled.query.window)
+    want_sets = {}
+    for j, p in enumerate(pos0):
+        ces = host.process(Event(PART_TYPES[flat_t[p]], {}, position=j,
+                                 timestamp=float(j)))
+        if ces:
+            want_sets[int(p)] = {(int(pos0[c.start]), int(pos0[c.end]),
+                                  tuple(int(pos0[d]) for d in c.data))
+                                 for c in ces}
+    hits0 = [h for h in hits_a if flat_k[h] == 0]
+    got_sets = {p: {(c.start, c.end, c.data) for c in ces}
+                for p, ces in eng.enumerate_hits(hits0).items()}
+    check(got_sets == want_sets, "phase 13 arena: key 0 enumerates what "
+          "the host Engine finds on its substream")
+    n0 = sum(map(len, want_sets.values()))
+    s_key0 = time.perf_counter() - t_key0
+    sample = [h for h in hits_a if T <= h < 2 * T and flat_k[h] > 0][:32]
+    res, s_enum = host_clock(lambda: eng.enumerate_hits(sample))
+    for p, ces in res.items():
+        check(len(ces) == counts_a[p], f"phase 13 arena: hit {p} "
+              f"enumerates {len(ces)} of {counts_a[p]} matches")
+    store, s_store = host_clock(
+        lambda: part_arena_chunk(eng, chunks[0], keys_dev))
+    feed_med_a = float(np.median(feed_a))
+    arena_res = {
+        "phase": 13, "case": "PARTITION BY at phase 1's width, arena",
+        "arena_capacity": arena_cap,
+        "store_GB": 5 * L * (arena_cap + 1) * 4 / 1e9,
+        "launches": launches_a, "matches": int(counts_a.sum()),
+        "max_ptr": int(arena["ptr"].max()), "key0_complex_events": n0,
+        "feed_ms_per_chunk_median": 1e3 * feed_med_a,
+        "feed_ms_per_chunk": [1e3 * x for x in feed_a],
+        "events_per_s": T / feed_med_a,
+        "enum_hits": len(sample), "enum_ms": 1e3 * s_enum,
+        "key0_check_s": s_key0, "store_check_s": s_store,
+        "peak_mem_GB": peak_a, **store,
+        "seconds": time.perf_counter() - t_start}
+    emit(result)
+    emit(arena_res)
+    del eng
+    torch.cuda.empty_cache()
+    return result, arena_res
+
+
+def part_arena_chunk(eng, attrs, keys_dev) -> dict:
+    """One more chunk of the arena engine from its state, which stays as
+    it is: the store kernel ≡ its plain version (node store, cells,
+    pointers, latches, roots) at per-lane starts, fills and global labels;
+    the kernel's time and bound."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.arena_update import KERNEL as AKERNEL
+    from repro_torch.vector import tecs_arena
+    L, cap = eng.num_lanes, eng.lane_cap
+    ops_ = part_step_operands(eng, attrs, keys_dev)
+    m_f, _, trace = part_fused(eng, ops_, clone_state(eng.state["C"]),
+                               trace=True)
+    hits = (m_f > 0.5)[..., :1]
+    at = eng.engine.arena_tables()
+    saved = eng.state["arena"]
+    lay = tecs_arena._block_layout(at, eng.window.ring, eng.epsilon,
+                                   eng.arena_capacity)
+    kw = dict(lay=lay, ptab=tecs_arena._ptab(at, eng.device),
+              finals_sq=tecs_arena._finals(at, eng.device))
+    args = (trace, hits, ops_["gpos"], ops_["start"], ops_["fill"])
+    ar = {k: v.clone() for k, v in saved.items()}
+    roots = ops.arena_store_update(ar, *tecs_arena.chunk_cells(ar), *args,
+                                   impl="fused", **kw)
+    ar_p = {k: v.clone() for k, v in saved.items()}
+    # the plain version runs once (about 8 s at this width): its time is
+    # this run's, host clock
+    roots_p, s_plain = host_clock(lambda: ops.arena_store_update(
+        ar_p, *tecs_arena.chunk_cells(ar_p), *args, impl="ref", **kw))
+    err = max_abs_err(roots, roots_p)
+    for k in ar:
+        check(torch.equal(ar[k], ar_p[k]), f"phase 13 arena: store kernel "
+              f"≡ plain on one chunk ({k})")
+        err = max(err, max_abs_err(ar[k], ar_p[k]))
+    check(torch.equal(roots, roots_p), "phase 13 arena: store roots ≡ plain")
+    del ar_p, roots_p
+    nodes = int((ar["ptr"] - saved["ptr"]).sum())
+    occ = [int((c != -1).any(dim=2).sum()) for c in (saved["cell"],
+                                                     ar["cell"])]
+    live = int(ops_["fill"].sum())
+    folded = live * (sum(occ) / 2 / L + 1)
+
+    def restore():
+        for k, v in saved.items():
+            ar[k].copy_(v)
+        return tecs_arena.chunk_cells(ar)
+    c0, _ = restore()
+    xs, _ = ref.segment_operands(c0, trace, hits, ops_["start"],
+                                 ops_["fill"], lay=lay, n_seg=1)
+    fin_np = kw["finals_sq"].cpu().numpy()
+    ms = timed_ms(restore, lambda c0, s0: AKERNEL(
+        ar, c0, s0, xs[:4], ops_["gpos"], lay=lay, ptab=kw["ptab"],
+        finals_sq=fin_np), reps=3)
+    bound = arena_bound(nodes, L, cap, eng.window.ring, at.num_states,
+                        at.max_indegree, 1, folded)
+    del ar
+    return {"store_kernel_ms": ms, "store_plain_ms": 1e3 * s_plain,
+            "store_bound_ms": bound[0], "store_bound_by": bound[1],
+            "store_bound_bytes": bound[2], "nodes_allocated": nodes,
+            "folded_slot_steps": folded, "max_abs_err": err}
+
+
+def zipf_keys(rng, table, T, null_share=0.02):
+    """(T,) uint32 keys drawn Zipf-skewed over ``table[:-1]``, with NULL
+    keys (``table[-1]``) mixed in."""
+    n = len(table) - 1
+    w = 1.0 / np.arange(1, n + 1)
+    idx = rng.choice(n, T, p=w / w.sum())
+    idx[rng.random(T) < null_share] = -1
+    return table[idx]
+
+
+def phase_part_exact(seed: int) -> dict:
+    """Churn (evictions, capacity and table spills) with the arena, LRU and
+    no eviction: the router kernel ≡ plain on every chunk, the engine with
+    kernels ≡ impl="ref"; then the paper's stock Q3 PARTITION BY [volume]
+    through feed(events) ≡ plain ≡ the host PartitionedEngine."""
+    from repro_torch.core import compile_query
+    from repro_torch.core.engine import Engine
+    from repro_torch.core.partition import PartitionedEngine
+    from repro_torch.data import stock_stream
+    from repro_torch.kernels import ops, ref
+    from repro_torch.vector import PartitionedStreamingEngine, VectorEngine
+    t_start = time.perf_counter()
+    L, n_keys, cap, T, n_chunks = 64, 96, 96, 4096, 6
+    query = MAIN_QUERY.format(300)
+    table = key_table(n_keys)
+    out = {"phase": 13, "case": "exactness: churn and stock Q3",
+           "churn": {}}
+    route_errs = []
+    for evict in ("lru", "none"):
+        t_churn = time.perf_counter()
+        rng = np.random.default_rng(seed + 40)
+        kern = part_engine(query, T, L, cap, evict=evict,
+                           arena_capacity=1 << 17)
+        plain = PartitionedStreamingEngine(
+            VectorEngine(query, impl="ref"), ("uid",), T, L, lane_cap=cap,
+            evict=evict, arena_capacity=1 << 17)
+        codes = torch.tensor([kern.encoder.vocab["type"].get(x, -1.0)
+                              for x in PART_TYPES], device=kern.device)
+        hits = []
+        for _ in range(n_chunks):
+            keys = zipf_keys(rng, table, T)
+            attrs = codes[torch.from_numpy(rng.integers(
+                0, len(PART_TYPES), T)).to(kern.device)][:, None]
+            st = kern.state
+            args = (ref.key_bits(torch.from_numpy(keys)).to(kern.device),
+                    st["lane_keys"].clone(), st["lane_last"].clone())
+            kw = dict(chunk_idx=kern._chunk_idx, cap=cap, evict=evict)
+            got = ops.lane_route(*args, **kw)
+            want = ops.lane_route(*args, impl="ref", **kw)
+            check(route_equal(got, want),
+                  f"phase 13 churn {evict}: lane_route kernel ≡ plain")
+            route_errs.append(route_err(got, want))
+            ck, hk = kern.feed_keyed(attrs, keys)
+            cp, hp = plain.feed_keyed(attrs, keys)
+            check(same(ck, cp) and hk == hp, f"phase 13 churn {evict}: "
+                  "counts and hits kernel ≡ plain")
+            hits += hk
+        sk, sp = kern.snapshot(), plain.snapshot()
+        check(sk["meta"] == sp["meta"] and sk["arrays"].keys() ==
+              sp["arrays"].keys() and all(
+                  same(sk["arrays"][k], sp["arrays"][k])
+                  for k in sp["arrays"]), f"phase 13 churn {evict}: "
+              "lane tables, rings, node stores, pointers and roots ≡ plain")
+        s = kern.stats
+        check(s.spilled_capacity > 0 and s.spilled_table > 0 and
+              (s.evicted_lanes > 0) == (evict == "lru"),
+              f"phase 13 churn {evict}: spills (and evictions) occur, {s}")
+        check(not bool(kern.state["arena"]["ovf"].any()),
+              f"phase 13 churn {evict}: arena ovf stays clear")
+        sample = hits[-16:]
+        check({p: sorted((c.start, c.end, c.data) for c in v)
+               for p, v in kern.enumerate_hits(sample).items()} ==
+              {p: sorted((c.start, c.end, c.data) for c in v)
+               for p, v in plain.enumerate_hits(sample).items()},
+              f"phase 13 churn {evict}: enumerated sets ≡ plain")
+        out["churn"][evict] = {"stats": vars(s), "hits": len(hits),
+                               "seconds": time.perf_counter() - t_churn}
+        del kern, plain
+
+    # the paper's own PARTITION BY query: stock Q3, 4 volumes on 8 lanes
+    t_q3 = time.perf_counter()
+    mwe, chunk, n_q3 = 4096, 2048, 4
+    stream = stock_stream(chunk * n_q3, seed=seed + 41,
+                          events_per_sec=400.0)
+    engines = [PartitionedStreamingEngine(
+        VectorEngine(STOCK_Q3_PART, max_window_events=mwe, impl=impl),
+        ("volume",), chunk, 8) for impl in (None, "ref")]
+    got = [[], []]
+    for i in range(n_q3):
+        part = stream[i * chunk:(i + 1) * chunk]
+        for e, g in zip(engines, got):
+            g.append(e.feed(part)[0])
+    got = [np.concatenate(g) for g in got]
+    sk, sp = engines[0].snapshot(), engines[1].snapshot()
+    check(same(got[0], got[1]) and all(
+        same(sk["arrays"][k], sp["arrays"][k]) for k in sp["arrays"]),
+        "phase 13 stock Q3: counts and state kernel ≡ plain")
+    check(not engines[0].window_overflow.any() and
+          engines[0].num_active_lanes == 4,
+          "phase 13 stock Q3: four volumes, ovf clear")
+    compiled = compile_query(STOCK_Q3_PART)
+    host = PartitionedEngine(
+        lambda: Engine(compiled.cea, window=compiled.query.window,
+                       consume_on_match=True), ("volume",))
+    want = np.array([len(host.process(ev)) for ev in stream], np.int64)
+    check(same(got[0], want), "phase 13 stock Q3: counts ≡ the host "
+          "PartitionedEngine")
+    out["stock_q3"] = {"events": len(stream), "lanes": 8,
+                       "ring": engines[0].window.ring,
+                       "matches": int(want.sum()),
+                       "seconds": time.perf_counter() - t_q3}
+    out["router_checks"] = len(route_errs)
+    out["lane_route_max_abs_err"] = max(route_errs)
+    out["seconds"] = time.perf_counter() - t_start
+    emit(out)
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1950,20 +2490,35 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase_card()
-    main_res, main_run = phase_main(args.seed)
-    phase_host(args.seed)
-    phase_time(args.seed)
-    phase_last_lanes(args.seed)
-    enum_res = phase_enum(args.seed)
-    phase_enum_time(args.seed)
-    phase_enum_shapes(args.seed)
-    unf_res = phase_unfused(args.seed, main_run)
+    t_main = time.perf_counter()
+    spans = {}
+
+    def phase(name, fn, *a):
+        """One phase, its wall-clock seconds kept under ``name``."""
+        t0 = time.perf_counter()
+        out = fn(*a)
+        spans[name] = time.perf_counter() - t0
+        return out
+
+    seed = args.seed
+    _, launch_floor_ms = phase("0 build, card", phase_card)
+    main_res, main_run = phase("1 main", phase_main, seed)
+    phase("2 host", phase_host, seed)
+    phase("3 time windows", phase_time, seed)
+    phase("4 LAST, per-lane offsets", phase_last_lanes, seed)
+    enum_res = phase("5 arena", phase_enum, seed)
+    phase("6 arena, stock Q1 Q3", phase_enum_time, seed)
+    phase("7 arena, LAST, K5", phase_enum_shapes, seed)
+    unf_res = phase("8 unfused", phase_unfused, seed, main_run)
     del main_run
-    packed_res = phase_packed(args.seed)
-    phase_edges(args.seed)
-    nine_res = phase_nine(args.seed)
-    wide_res = phase_enum_wide(args.seed)
+    packed_res = phase("9 packed", phase_packed, seed)
+    phase("10 edges", phase_edges, seed)
+    nine_res = phase("11 nine queries", phase_nine, seed)
+    wide_res = phase("12 arena at 1024", phase_enum_wide, seed)
+    part_res, part_arena = phase("13a partitioned", phase_part, seed)
+    exact_res = phase("13b partitioned exactness", phase_part_exact, seed)
+    emit({"phase_seconds": spans,
+          "total_s": time.perf_counter() - t_main})
     unf = unf_res["kernels"]
     emit({"kernels": [{
         "name": "fused_scan", "route": "cuda",
@@ -1980,13 +2535,17 @@ def main() -> None:
         "phase9_ms": packed_res["fused_scan_ms"],
         "phase9_n_split": packed_res["fused_scan_n_split"],
         "phase11_ms": nine_res["fused_scan_ms"],
-        "phase11_n_split": nine_res["fused_scan_n_split"]}, {
+        "phase11_n_split": nine_res["fused_scan_n_split"],
+        "phase13_ms": part_res["fused_scan_ms"],
+        "phase13_bound_ms": part_res["fused_scan_bound_ms"],
+        "phase13_n_split": part_res["fused_scan_n_split"]}, {
         "name": "arena_update", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/arena_update.cu",
         "replaces": "src/repro/kernels/arena_update.py:88",
         "launches": enum_res["launches"]["arena_update"],
         "max_abs_err": max(enum_res["max_abs_err"],
-                           wide_res["max_abs_err"]),
+                           wide_res["max_abs_err"],
+                           part_arena["max_abs_err"]),
         "ms": enum_res["kernel_ms_per_chunk"],
         "plain_ms": enum_res["plain_ms_per_chunk"],
         "bound_ms": enum_res["bound_ms"],
@@ -1996,7 +2555,10 @@ def main() -> None:
         "dense_bound_ms": enum_res["dense_bound_ms"],
         "phase12_ms": wide_res["kernel_ms_per_chunk"],
         "phase12_bound_ms": wide_res["bound_ms"],
-        "phase12_launches": wide_res["launches"]["arena_update"]}, {
+        "phase12_launches": wide_res["launches"]["arena_update"],
+        "phase13_ms": part_arena["store_kernel_ms"],
+        "phase13_bound_ms": part_arena["store_bound_ms"],
+        "phase13_launches": part_arena["launches"]["arena_update"]}, {
         "name": "bitvector", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bitvector.cu",
         "replaces": "src/repro/kernels/bitvector.py:45",
@@ -2006,7 +2568,7 @@ def main() -> None:
         "plain_ms": unf["bitvector"]["plain_ms"],
         "bound_ms": unf["bitvector"]["bound_ms"],
         "bound_by": unf["bitvector"]["bound_by"],
-        "library_ms": None}, {
+        "library_ms": None, "launch_floor_ms": launch_floor_ms}, {
         "name": "cea_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/cea_scan.cu",
         "replaces": "src/repro/kernels/cea_scan.py:195",
@@ -2029,7 +2591,22 @@ def main() -> None:
         "library_ms": None,
         "n_split": packed_res["cea_scan_multi_n_split"],
         "phase11_ms": nine_res["cea_scan_multi_ms"],
-        "phase11_n_split": nine_res["cea_scan_multi_n_split"]}]})
+        "phase11_n_split": nine_res["cea_scan_multi_n_split"]}, {
+        "name": "lane_route", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lane_route.cu",
+        "replaces": "src/repro/vector/partitioned.py:182 (lax.scan, "
+                    "not a Pallas kernel)",
+        "launches": part_res["launches"]["lane_route"],
+        "max_abs_err": max(part_res["lane_route_max_abs_err"],
+                           exact_res["lane_route_max_abs_err"]),
+        "ms": part_res["lane_route_ms"],
+        "plain_ms": part_res["lane_route_plain_ms"],
+        "bound_ms": part_res["lane_route_bound_ms"],
+        "bound_by": part_res["lane_route_bound_by"],
+        "library_ms": None,
+        "chunk1_ms": part_res["lane_route_ms_chunk1"],
+        "chunk1_plain_ms": part_res["lane_route_plain_ms_chunk1"],
+        "phase13b_checks": exact_res["router_checks"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -3,7 +3,7 @@
 Each CUDA source in ``csrc/`` is compiled by its own ``nvcc`` process (all
 started together) for ``sm_90a``, and the objects are linked into one shared
 library in ``build/repro_torch/`` at the repository root, named by a hash of
-the sources, the header they share and the flags.  The library is built and
+the sources, every header in ``csrc/`` and the flags.  The library is built and
 loaded at first use, once per process, and bound through ``ctypes``; nothing
 happens at import.
 """
@@ -20,9 +20,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "fused_scan.cu", CSRC / "arena_update.cu",
-           CSRC / "bitvector.cu", CSRC / "cea_scan.cu")
-#: headers the sources include: part of the library's hash
-HEADERS = (CSRC / "common.cuh",)
+           CSRC / "bitvector.cu", CSRC / "cea_scan.cu",
+           CSRC / "lane_route.cu")
+#: every header in ``csrc/``: part of the library's hash, so an edit to any
+#: header a source includes rebuilds the library
+HEADERS = tuple(sorted(CSRC.glob("*.cuh")))
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -17,8 +17,9 @@ point of the device CER pipeline:
 * ``impl="ref"`` — the plain version on whatever device the tensors lie on.
 
 :func:`arena_store_update` routes the block tECS builder that writes the
-node store (the engines' route) the same way, and :func:`arena_block_update`
-the builder that emits the TPU kernel's dense records (segmented chunks).
+node store (the engines' route) the same way, :func:`arena_block_update`
+the builder that emits the TPU kernel's dense records (segmented chunks),
+and :func:`lane_route` the partitioned engine's lane router.
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ from .arena_update import KERNEL as ARENA_KERNEL
 from .bitvector import KERNEL as BITVECTOR_KERNEL
 from .bitvector import check_specs
 from .fused_scan import KERNEL, check_split
+from .lane_route import KERNEL as LANE_ROUTE_KERNEL
 from .window import DeviceWindow
 
 IMPLS = ("fused", "unfused", "ref")
@@ -395,6 +397,31 @@ def arena_store_update(arena: dict, cells0, sstart0, class_ids: torch.Tensor,
         consume=con_s)
     return torch.where(torch.as_tensor(hits, device=dev).bool(),
                        roots.movedim(0, 1), ref.ARENA_NULL)
+
+
+def lane_route(keys, lane_keys, lane_last: torch.Tensor, *, chunk_idx: int,
+               cap: int, evict: str = "lru", impl: str = "fused"
+               ) -> ref.LaneRoute:
+    """One chunk's lane assignment of the partitioned engine: the Hopper
+    router or its plain version.
+
+    keys (T,) and lane_keys (L,): 32-bit partition hashes (uint32, int32
+    bit patterns or int64 values); lane_last (L,) int32; ``cap`` the lane
+    capacity of the chunk (``fill`` is capped at it, ranks are not).
+    Returns a :class:`repro_torch.kernels.ref.LaneRoute`.  CUDA tensors
+    launch the kernel (:data:`repro_torch.kernels.lane_route.KERNEL`),
+    which raises ``ValueError`` for what it does not take; CPU tensors or
+    ``impl="ref"`` run :func:`ref.lane_route_ref`.  No fallback.
+    """
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    keys, lane_keys = ref.key_bits(keys), ref.key_bits(lane_keys)
+    lane_last = torch.as_tensor(lane_last).to(torch.int32)
+    kw = dict(chunk_idx=int(chunk_idx), cap=int(cap), evict=evict)
+    if impl == "ref" or not _on_cuda(keys, "lane_route"):
+        return ref.lane_route_ref(keys, lane_keys, lane_last, **kw)
+    return LANE_ROUTE_KERNEL(keys.contiguous(), lane_keys.contiguous(),
+                             lane_last.contiguous(), **kw)
 
 
 def _clone_state(state):

@@ -20,16 +20,19 @@ bit for bit.
 
 The second half is the block tECS builder (the arena-update kernel's plain
 version): int32 node ids and records, so kernel and plain version agree bit
-for bit too.
+for bit too.  Last comes the lane router of the partitioned engine
+(:func:`lane_route_ref`, the plain version of the lane-routing kernel).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+import bisect
+from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..core.partition import EMPTY_LANE, NULL_KEY_HASH
 from ..core.tecs import BOTTOM, OUTPUT, UNION
 
 # op codes shared with the kernel's predicate stage
@@ -1038,3 +1041,108 @@ def arena_slot_starts(sstart0, gpos, start, valid_counts, *, W: int):
     g = torch.gather(gpos.movedim(1, 0)[:, None, :].expand(B, T, T), 2,
                      t_seed.clamp(0, T - 1).movedim(1, 0))      # (B, T, W)
     return torch.where(t_seed >= 0, g.movedim(1, 0), sstart0[None])
+
+
+# ---------------------------------------------------------------------------
+# lane router of the partitioned engine (PARTITION BY)
+# ---------------------------------------------------------------------------
+
+EVICT_POLICIES = ("lru", "none")
+
+
+class LaneRoute(NamedTuple):
+    """One chunk's routing.  Per event: ``lane`` (T,) int32 (L: not
+    routed — NULL key or table spill), ``rank`` (T,) int32 (the event's
+    place among the chunk's earlier events of its lane; -1 when not
+    routed), ``null`` (T,) bool.  Per lane: the new ``lane_keys`` (L,)
+    int32 key bits and ``lane_last`` (L,) int32, ``evicted`` (L,) bool (the
+    lane changed owner) and ``fill`` (L,) int32 = min(events routed,
+    cap)."""
+
+    lane: torch.Tensor
+    rank: torch.Tensor
+    null: torch.Tensor
+    lane_keys: torch.Tensor
+    lane_last: torch.Tensor
+    evicted: torch.Tensor
+    fill: torch.Tensor
+
+
+def key_bits(keys) -> torch.Tensor:
+    """32-bit partition hashes (uint32, int32 bit patterns, or int64
+    values below 2^32) → int32 bit patterns, the router's key operand."""
+    k = torch.as_tensor(keys)
+    if k.dtype == torch.int32:
+        return k
+    if k.dtype == torch.uint32:
+        return k.view(torch.int32)
+    k = k.to(torch.int64) & 0xFFFFFFFF
+    return torch.where(k >= 1 << 31, k - (1 << 32), k).to(torch.int32)
+
+
+def lane_route_ref(keys: torch.Tensor, lane_keys: torch.Tensor,
+                   lane_last: torch.Tensor, *, chunk_idx: int, cap: int,
+                   evict: str = "lru") -> LaneRoute:
+    """The serial lane assignment of one chunk, event by event.
+
+    keys (T,) and lane_keys (L,): int32 key bits (:func:`key_bits`);
+    lane_last (L,) int32.  Each event takes the lowest lane holding its
+    key; a new key takes the lowest empty lane, else (``evict="lru"``) the
+    owned lane with no event yet this chunk whose ``lane_last`` is least
+    (the lowest such lane on ties), else it spills.  A NULL key, or a raw
+    ``EMPTY_LANE`` key, is dropped.  Every routed event sets its lane's
+    ``lane_last`` to ``chunk_idx``.  The loop runs on host copies of the
+    tables; results come back on the keys' device.
+    """
+    if evict not in EVICT_POLICIES:
+        raise ValueError(f"evict must be one of {EVICT_POLICIES}, got "
+                         f"{evict!r}")
+    dev = keys.device
+    mask = 0xFFFFFFFF
+    ks = [k & mask for k in keys.tolist()]
+    table = [k & mask for k in lane_keys.tolist()]
+    old = list(table)
+    last = lane_last.tolist()
+    L, T = len(table), len(ks)
+    holders: dict = {}             # key → the lanes holding it, ascending
+    for lane, k in enumerate(table):
+        holders.setdefault(k, []).append(lane)
+    touched = [0] * L
+    lanes, ranks, nulls = [L] * T, [-1] * T, [False] * T
+    for t, k in enumerate(ks):
+        if k in (NULL_KEY_HASH, EMPTY_LANE):
+            nulls[t] = True
+            continue
+        held = holders.get(k)
+        if held:
+            lane = held[0]
+        else:
+            empty = holders.get(EMPTY_LANE)
+            if empty:
+                lane = empty[0]
+            elif evict == "lru":
+                cands = [(last[b], b) for b in range(L)
+                         if touched[b] == 0 and table[b] != EMPTY_LANE]
+                if not cands:
+                    continue
+                lane = min(cands)[1]
+            else:
+                continue
+            holders[table[lane]].remove(lane)
+            bisect.insort(holders.setdefault(k, []), lane)
+            table[lane] = k
+        ranks[t] = touched[lane]
+        touched[lane] += 1
+        last[lane] = chunk_idx
+        lanes[t] = lane
+
+    def i32(vals, dtype=torch.int32):
+        return torch.tensor(vals, dtype=torch.int64).to(dtype).to(dev)
+    return LaneRoute(
+        lane=i32(lanes), rank=i32(ranks), null=i32(nulls, torch.bool),
+        lane_keys=key_bits(torch.tensor(table, dtype=torch.int64)).to(dev),
+        lane_last=i32(last),
+        evicted=i32([a != b and b != EMPTY_LANE
+                     for a, b in zip(table, old)], torch.bool),
+        fill=i32([min(n, cap) for n in touched]))
+

@@ -5,8 +5,8 @@ dense ``(B, A)`` f32 matrix.  The encoder derives, from the query's atom
 registry, (1) the ordered list of referenced attributes and (2) per-attribute
 categorical vocabularies for string constants, and produces both the numeric
 predicate specs of the fused-scan kernel and the event matrices.  It is the
-reference package's encoder without the keyed (PARTITION BY) encodes, which
-belong to the partitioned engine's slice.
+reference package's encoder, the keyed (PARTITION BY) encodes of one
+interleaved stream included.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..core.events import Event
+from ..core.partition import partition_key, stable_key_hash
 from ..core.predicates import AtomRegistry
 from ..kernels.ref import OP_EQ, OP_GE, OP_GT, OP_LE, OP_LT, OP_NE
 
@@ -125,3 +126,61 @@ class EventEncoder:
                     ev, time_attr,
                     None if base_pos is None else float(base_pos + t))
         return attrs, ts
+
+    def encode_stream_with_keys(self, events: Sequence[Event],
+                                key_attrs: Tuple[str, ...]
+                                ) -> Tuple[np.ndarray, np.ndarray]:
+        """One interleaved stream → (attrs (T, A) f32, keys (T,) uint32).
+
+        ``keys[t]`` is the stable 32-bit partition hash of event ``t``'s
+        PARTITION BY attributes (``core.partition.stable_key_hash``); events
+        NULL on any key attribute get the NULL sentinel, which the device
+        router drops (they join no substream).  Key attributes need not be
+        referenced by the query's predicates — hashing reads the raw values,
+        not the encoded matrix.
+        """
+        T = len(events)
+        out = np.zeros((T, len(self.attrs)), dtype=np.float32)
+        keys = np.empty((T,), dtype=np.uint32)
+        for t, ev in enumerate(events):
+            out[t] = self.encode_event(ev)
+            keys[t] = stable_key_hash(partition_key(ev, key_attrs))
+        return out, keys
+
+    def encode_stream_keyed_ts(self, events: Sequence[Event],
+                               key_attrs: Tuple[str, ...],
+                               time_attr: Optional[str] = None,
+                               clock: Optional[Dict[int, int]] = None
+                               ) -> Tuple[np.ndarray, np.ndarray,
+                                          np.ndarray]:
+        """Keyed encoding + the timestamp operand (time-window PARTITION
+        BY): → (attrs (T, A), keys (T,) uint32, ts (T,)
+        f32).  The global stream position is NOT a valid fallback clock
+        here — the host engine's clock is the *substream-local* position,
+        only known after routing.  ``clock`` supplies exactly that: a
+        persistent ``{key_hash: next_rank}`` counter table (owned by the
+        caller, carried across chunks and through checkpoints) — each
+        non-NULL-key event draws its substream rank from it, so a
+        timestamp-less event gets ``float(rank)``, bit-identical to the
+        host ``PartitionedEngine``'s per-partition position clock.  With
+        ``clock=None`` events must carry timestamps (or ``time_attr``),
+        like the host fed through ``assign_positions``.
+        NULL-key events join no substream (the host drops them before
+        ever reading a clock), so they get a NaN placeholder instead of
+        raising — and never consume a rank: the router never scatters
+        them to a lane and the monotonicity audit skips NULL-key rows.
+        """
+        attrs, keys = self.encode_stream_with_keys(events, key_attrs)
+        ts = np.empty((len(events),), dtype=np.float32)
+        for t, ev in enumerate(events):
+            if partition_key(ev, key_attrs) is None:
+                ts[t] = np.nan
+                continue
+            rank = None
+            if clock is not None:
+                h = int(keys[t])
+                rank = clock.get(h, 0)
+                clock[h] = rank + 1
+            ts[t] = self.event_ts(
+                ev, time_attr, None if rank is None else float(rank))
+        return attrs, keys, ts

@@ -11,7 +11,9 @@ events themselves, through the device tECS arena
 unbounded streams use
 :class:`repro_torch.vector.streaming.StreamingVectorEngine`.
 
-The B axis carries independent, pre-partitioned substreams.
+The B axis carries independent, pre-partitioned substreams;
+:meth:`VectorEngine.partitioned_streaming` routes one interleaved stream to
+them by key (PARTITION BY).
 """
 from __future__ import annotations
 
@@ -28,9 +30,6 @@ from ..kernels import window as wkern
 from . import tecs_arena
 from .encoder import EventEncoder
 from .symbolic import SymbolicCEA, compile_symbolic
-
-_NOT_PORTED = "not ported yet: see ROADMAP.md, Queue 1"
-
 
 def resolve_device(device=None) -> torch.device:
     """The engine's device: CUDA unless the caller asks for the CPU.
@@ -287,6 +286,12 @@ class VectorEngine:
             arena_capacity=arena_capacity, strategy=strategy)
         return counts[:, :, 0], {(t, b): v for (t, b, _q), v in res.items()}
 
-    def partitioned_streaming(self, *args, **kwargs):
-        raise NotImplementedError("PartitionedStreamingEngine is "
-                                  + _NOT_PORTED)
+    def partitioned_streaming(self, key_attrs: Sequence[str],
+                              chunk_len: int, num_lanes: int, **kw):
+        """PARTITION BY over this query's tables: a
+        :class:`repro_torch.vector.partitioned.PartitionedStreamingEngine`
+        that routes raw interleaved chunks to ``num_lanes`` substream lanes
+        on the device."""
+        from .partitioned import PartitionedStreamingEngine
+        return PartitionedStreamingEngine(self, key_attrs, chunk_len,
+                                          num_lanes, **kw)

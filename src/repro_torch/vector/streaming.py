@@ -60,6 +60,9 @@ def _flatten_state(prefix: str, tree, out: Dict[str, np.ndarray]) -> None:
     if isinstance(tree, dict):
         for k in sorted(tree):
             _flatten_state(f"{prefix}/{k}", tree[k], out)
+    elif tree.dtype == torch.uint32:   # few ops take uint32: move the bits
+        out[prefix] = tree.view(torch.int32).cpu().numpy().view(
+            np.uint32).copy()
     else:
         out[prefix] = tree.cpu().numpy().copy()
 
@@ -199,7 +202,11 @@ def _restore_into(template, arrays: Dict[str, np.ndarray]):
     pairs: List[Tuple[torch.Tensor, np.ndarray]] = []
     _leaves("state", template, arrays, pairs)
     for t, arr in pairs:
-        t.copy_(torch.from_numpy(np.array(arr)))
+        if t.dtype == torch.uint32:    # few ops take uint32: move the bits
+            t.view(torch.int32).copy_(torch.from_numpy(
+                np.array(arr).view(np.int32)))
+        else:
+            t.copy_(torch.from_numpy(np.array(arr)))
     return template
 
 
@@ -271,14 +278,15 @@ class StreamingVectorEngine:
         self._last_ts: Optional[np.ndarray] = None
         # lanes parked mid-overflow-heal (quarantine)
         self._quarantined: Tuple[int, ...] = ()
-        self._state = self._init_full_state()
+        self._state = self._init_full_state(self.batch)
 
-    def _init_full_state(self):
-        C = self.engine.init_state(self.batch)
+    def _init_full_state(self, batch: int):
+        """Fresh device state for ``batch`` lanes."""
+        C = self.engine.init_state(batch)
         if self.arena_capacity is None:
             return C
         return {"C": C, "arena": tecs_arena.init_arena(
-            self.batch, self.arena_capacity, self._ring,
+            batch, self.arena_capacity, self._ring,
             self._arena_tables.num_states, device=self.device)}
 
     # ------------------------------------------------------------------
@@ -394,12 +402,21 @@ class StreamingVectorEngine:
         _flatten_state("state", self._state, arrays)
         if self._last_ts is not None:
             arrays["last_ts"] = np.asarray(self._last_ts, np.float32)
+        self._snapshot_roots(arrays)
+        return {"arrays": arrays, "meta": self.manifest()}
+
+    def _snapshot_roots(self, arrays: Dict[str, np.ndarray]) -> None:
         keys = sorted(self._roots)
         if keys:
             arrays["roots_key"] = np.asarray(keys, np.int64)      # (N, 2)
             arrays["roots_val"] = np.stack(
                 [np.asarray(self._roots[k], np.int32) for k in keys])
-        return {"arrays": arrays, "meta": self.manifest()}
+
+    def _restore_roots(self, arrays: Dict[str, np.ndarray]) -> None:
+        self._roots.clear()
+        if "roots_key" in arrays:
+            for k, v in zip(arrays["roots_key"], arrays["roots_val"]):
+                self._roots[(int(k[0]), int(k[1]))] = np.asarray(v, np.int32)
 
     def _check_manifest(self, meta: dict, skip: Sequence[str] = ()) -> None:
         mine = self.manifest()
@@ -445,6 +462,40 @@ class StreamingVectorEngine:
                 f"ring regrow cannot shrink: snapshot ring "
                 f"{int(sw['ring'])} > engine ring {target_ring}")
 
+    def _ring_migration_frame(self, meta: dict,
+                              arrays: Dict[str, np.ndarray]) -> np.ndarray:
+        """Per-lane next-seed positions for the ring slot remap: the stream
+        cursor, the same for every lane (the partitioned engine rewrites
+        its per-lane cursors instead)."""
+        return np.full(self.batch, int(meta["pos"]), np.int64)
+
+    def _ring_migrated(self, meta: dict, arrays: Dict[str, np.ndarray],
+                       max_window_events: Optional[int],
+                       skip: Tuple[str, ...]) -> Dict[str, np.ndarray]:
+        """Check the manifest (ring-elastically when the rings differ),
+        apply a regrown window, and move the ring leaves onto this
+        engine's ring.  Every check runs before the engine changes."""
+        snap_ring = int((meta.get("window") or {}).get("ring",
+                                                      self.window.ring))
+        new_w = (self.window.regrow(max_window_events)
+                 if max_window_events is not None else self.window)
+        if new_w.ring < snap_ring:
+            raise ValueError(
+                f"restore(max_window_events={int(max_window_events)}) pads "
+                f"to ring {new_w.ring} < snapshot ring {snap_ring} — ring "
+                "regrow cannot shrink")
+        if snap_ring != new_w.ring:
+            self._check_window_elastic(meta, target_ring=new_w.ring)
+            skip = skip + ("window",)
+        self._check_manifest(meta, skip=skip)
+        if new_w.ring != self.window.ring:
+            self._apply_ring(new_w)
+        if snap_ring != self.window.ring:
+            arrays = migrate_ring_arrays(
+                arrays, snap_ring, self.window.ring,
+                self._ring_migration_frame(meta, arrays))
+        return arrays
+
     def _apply_ring(self, new_window: "wkern.DeviceWindow") -> None:
         """Point this engine and the wrapped engine at a regrown window.
         The wrapped engine is mutated — regrow only an engine you own."""
@@ -474,38 +525,18 @@ class StreamingVectorEngine:
         if migrate_packing:
             skip = self._packing_elastic_keys
             arrays = dict(self._migrated_arrays(snapshot))
-        snap_ring = int((meta.get("window") or {}).get("ring",
-                                                      self.window.ring))
-        new_w = (self.window.regrow(max_window_events)
-                 if max_window_events is not None else self.window)
-        if new_w.ring < snap_ring:
-            raise ValueError(
-                f"restore(max_window_events={int(max_window_events)}) pads "
-                f"to ring {new_w.ring} < snapshot ring {snap_ring} — ring "
-                "regrow cannot shrink")
-        if snap_ring != new_w.ring:
-            self._check_window_elastic(meta, target_ring=new_w.ring)
-            skip = skip + ("window",)
-        self._check_manifest(meta, skip=skip)
-        regrown = new_w.ring != self.window.ring
-        if regrown:
-            self._apply_ring(new_w)
-        if snap_ring != self.window.ring:
-            frame = np.full(self.batch, int(meta["pos"]), np.int64)
-            arrays = migrate_ring_arrays(arrays, snap_ring,
-                                         self.window.ring, frame)
+        ring = self.window.ring
+        arrays = self._ring_migrated(meta, arrays, max_window_events, skip)
         # a regrown ring needs new buffers; otherwise restore in place
         self._state = _restore_into(
-            self._init_full_state() if regrown else self._state, arrays)
+            self._init_full_state(self.batch) if self.window.ring != ring
+            else self._state, arrays)
         # the restored node rows replace the store: refetch from row 0
         self._arena_mirror.invalidate()
         self._pos = int(meta["pos"])
         self._last_ts = (np.asarray(arrays["last_ts"], np.float32)
                          if "last_ts" in arrays else None)
-        self._roots.clear()
-        if "roots_key" in arrays:
-            for k, v in zip(arrays["roots_key"], arrays["roots_val"]):
-                self._roots[(int(k[0]), int(k[1]))] = np.asarray(v, np.int32)
+        self._restore_roots(arrays)
         self._quarantined = tuple(
             int(b) for b in meta.get("quarantined_lanes", ()))
 
@@ -676,7 +707,10 @@ class StreamingVectorEngine:
             n = len(self._roots)
             self._roots.clear()
             return n
-        drop = [k for k in self._roots if k[0] < before]
+        # keys are (position, stream) here, bare positions in the
+        # partitioned subclass
+        drop = [k for k in self._roots
+                if (k[0] if isinstance(k, tuple) else k) < before]
         for k in drop:
             del self._roots[k]
         return len(drop)

@@ -9,17 +9,22 @@ Tolerance 0: counts are f32 integers, exact below 2^24 in any order of
 summation, and the arena builder's records, roots and cells are int32 node
 ids, so kernel and plain version agree bit for bit.
 """
+import random
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.data import StreamSpec, random_stream
-from repro_torch.kernels import arena_update, bitvector, cea_scan, fused_scan
+from repro_torch.kernels import (arena_update, bitvector, cea_scan,
+                                 fused_scan, lane_route)
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels import window as wkern
 from repro_torch.vector import StreamingVectorEngine, VectorEngine
 from repro_torch.vector import tecs_arena
+
+from _route_cases import ROUTE_T, dup_tables, later_holders, route_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -970,3 +975,165 @@ def test_unfused_routers_raise_on_what_the_kernels_refuse(dev):
                                  **kw)
         for g, f, p in zip(got, fused, plain):
             assert equal(g, f) and equal(g, p)
+
+
+# ---------------------------------------------------------------------------
+# PARTITION BY: the lane router and the partitioned engine
+# ---------------------------------------------------------------------------
+
+
+def zipf_keys(rng, pool, T, null_share=0.02):
+    """(T,) uint32 key draws, Zipf-skewed over ``pool``, with NULL and raw
+    EMPTY_LANE keys mixed in."""
+    from repro_torch.core.partition import EMPTY_LANE, NULL_KEY_HASH
+    w = 1.0 / np.arange(1, len(pool) + 1)
+    keys = pool[rng.choice(len(pool), T, p=w / w.sum())].astype(np.uint32)
+    r = rng.random(T)
+    keys[r < null_share] = NULL_KEY_HASH
+    keys[r > 1 - null_share / 4] = EMPTY_LANE
+    return keys
+
+
+def route_equal(got, want):
+    return all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("L", [1, 7, 64, 1024, 1500, 20000])
+@pytest.mark.parametrize("evict", ["lru", "none"])
+def test_lane_route_kernel_matches_plain(dev, L, evict):
+    """Chained chunks from an empty table, then from a full table of other
+    keys: allocations, LRU evictions and both spills, at lane counts that
+    keep the router's counters and flags in shared memory and past it."""
+    from repro_torch.core.partition import EMPTY_LANE
+    rng = np.random.default_rng(L)
+    T = 3000 if L < 20000 else 2500
+    pool = rng.choice(EMPTY_LANE - 1, size=L + max(3, L // 2),
+                      replace=False).astype(np.uint32)
+    for prefill in (False, True):
+        if prefill:      # every lane owned, lane_last with ties
+            table = torch.from_numpy(rng.choice(EMPTY_LANE - 1, L).astype(
+                np.uint32))
+            last = torch.from_numpy(rng.integers(0, 3, L).astype(np.int32))
+        else:
+            table = torch.full((L,), EMPTY_LANE, dtype=torch.int64)
+            last = torch.full((L,), -1, dtype=torch.int32)
+        evicted = spilled = over_cap = 0
+        for c in range(3 if L < 20000 else 2):
+            keys = torch.from_numpy(zipf_keys(rng, pool, T))
+            n0 = lane_route.KERNEL.launches
+            got = ops.lane_route(keys.to(dev), table.to(dev), last.to(dev),
+                                 chunk_idx=c + 3, cap=4, evict=evict)
+            torch.cuda.synchronize()
+            assert lane_route.KERNEL.launches == n0 + 1
+            want = ops.lane_route(keys, table, last, chunk_idx=c + 3, cap=4,
+                                  evict=evict)
+            assert route_equal(got, want), (L, evict, prefill, c)
+            evicted += int(want.evicted.sum())
+            spilled += int(((want.lane == L) & ~want.null).sum())
+            over_cap += int((want.rank >= 4).sum())
+            table, last = want.lane_keys, want.lane_last
+        if prefill:      # the table holds none of the chunk's keys
+            assert (evicted > 0) == (evict == "lru")
+            assert spilled > 0 or evict == "lru"
+        if not prefill or evict == "lru":
+            assert over_cap > 0
+
+
+@pytest.mark.parametrize("L", [1, 3, 5])
+@pytest.mark.parametrize("evict", ["lru", "none"])
+def test_lane_route_kernel_matches_plain_on_hand_set_tables(dev, L, evict):
+    """The CPU tests' hand-set tables: ties in lane_last, full tables, an
+    all-NULL chunk, raw EMPTY_LANE keys, keys held in several lanes."""
+    rng = random.Random(L * 7)
+    for keys, table, last, chunk_idx in route_cases(rng, L):
+        args = (torch.tensor(keys, dtype=torch.int64),
+                torch.tensor(table, dtype=torch.int64),
+                torch.tensor(last, dtype=torch.int32))
+        for cap in (3, ROUTE_T):
+            got = ops.lane_route(*(a.to(dev) for a in args),
+                                 chunk_idx=chunk_idx, cap=cap, evict=evict)
+            want = ops.lane_route(*args, chunk_idx=chunk_idx, cap=cap,
+                                  evict=evict)
+            assert route_equal(got, want), (keys, table, last, cap)
+
+
+@pytest.mark.parametrize("L", [3, 7, 64, 1024, 1500])
+@pytest.mark.parametrize("T", [24, 3000])
+@pytest.mark.parametrize("evict", ["lru", "none"])
+def test_lane_route_kernel_matches_plain_on_duplicate_tables(dev, L, T,
+                                                             evict):
+    """Tables that hold a key in several lanes: when LRU evicts the lowest
+    of them, the walk sends the key's events to the next lane that still
+    holds it."""
+    rng = np.random.default_rng(L * 31 + T)
+    moved = 0
+    for keys, table, last, chunk_idx in dup_tables(rng, L, T):
+        args = tuple(map(torch.from_numpy, (keys, table, last)))
+        n0 = lane_route.KERNEL.launches
+        got = ops.lane_route(*(a.to(dev) for a in args),
+                             chunk_idx=chunk_idx, cap=4, evict=evict)
+        torch.cuda.synchronize()
+        assert lane_route.KERNEL.launches == n0 + 1
+        want = ops.lane_route(*args, chunk_idx=chunk_idx, cap=4,
+                              evict=evict)
+        assert route_equal(got, want), (L, T, evict, chunk_idx)
+        moved += later_holders(keys, table, want.lane)
+    if evict == "none":
+        assert moved == 0
+    elif T > ROUTE_T:
+        assert moved > 0
+
+
+def churn_engine(dev, evict, impl=None):
+    from repro_torch.vector import PartitionedStreamingEngine
+    ve = VectorEngine("SELECT * FROM S WHERE A1 ; A2 ; A3 WITHIN 400 events",
+                      device=dev, impl=impl)
+    return PartitionedStreamingEngine(ve, ("uid",), 1024, 16, lane_cap=48,
+                                      evict=evict, arena_capacity=1 << 14)
+
+
+def churn_chunks(ve_encoder, rng, n_chunks, T=1024, n_keys=24):
+    codes = np.array([ve_encoder.vocab["type"].get(t, -1.0)
+                      for t in ("A1", "A2", "A3", "B1")], np.float32)
+    pool = np.arange(1000, 1000 + n_keys, dtype=np.uint32)
+    return [(torch.from_numpy(codes[rng.integers(0, 4, (T, 1))]),
+             zipf_keys(rng, pool, T)) for _ in range(n_chunks)]
+
+
+@pytest.mark.parametrize("evict", ["lru", "none"])
+def test_partitioned_kernels_match_plain_on_churn(dev, evict):
+    """Evictions, both spills and the arena: the engine with its kernels
+    (one router, one fused and one store launch per feed) ≡ impl="ref"
+    (counts, hits, stats, every snapshot leaf, enumerated sets)."""
+    kern, plain = churn_engine(None, evict), churn_engine(None, evict, "ref")
+    chunks = churn_chunks(kern.encoder, np.random.default_rng(5), 4)
+    hits = []
+    for attrs, keys in chunks:
+        counters = [k.launches for k in (lane_route.KERNEL,
+                                         fused_scan.KERNEL,
+                                         arena_update.KERNEL)]
+        ck, hk = kern.feed_keyed(attrs.to(dev), keys)
+        torch.cuda.synchronize()
+        assert [k.launches for k in (lane_route.KERNEL, fused_scan.KERNEL,
+                                     arena_update.KERNEL)] == \
+            [n + 1 for n in counters]
+        cp, hp = plain.feed_keyed(attrs.to(dev), keys)
+        np.testing.assert_array_equal(ck, cp)
+        assert hk == hp
+        hits += hk
+    assert kern.stats == plain.stats
+    st = kern.stats
+    assert st.spilled_capacity > 0 and st.spilled_table > 0
+    assert (st.evicted_lanes > 0) == (evict == "lru")
+    assert kern.compile_count == 1
+    sk, sp = kern.snapshot(), plain.snapshot()
+    assert sk["meta"] == sp["meta"]
+    for k in sp["arrays"]:
+        np.testing.assert_array_equal(sk["arrays"][k], sp["arrays"][k],
+                                      err_msg=k)
+    assert hits
+    got, want = kern.enumerate_hits(hits), plain.enumerate_hits(hits)
+    assert {p: sorted((c.start, c.end, c.data) for c in v)
+            for p, v in got.items()} == \
+        {p: sorted((c.start, c.end, c.data) for c in v)
+         for p, v in want.items()}

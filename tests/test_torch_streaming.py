@@ -175,8 +175,10 @@ def test_unported_paths_raise():
     # test_torch_multiquery.py); a single-query engine has no packing
     with pytest.raises(ValueError, match="packing specs on both sides"):
         ts.restore(ts.snapshot(), migrate_packing=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        te.partitioned_streaming(("name",), 8, 2)
+    # PARTITION BY is ported too (test_torch_partitioned.py)
+    pse = te.partitioned_streaming(("name",), 8, 2)
+    assert type(pse).__name__ == "PartitionedStreamingEngine"
+    assert pse.num_lanes == 2 and pse.chunk_len == 8
 
 
 def test_engine_defaults_to_cuda():
