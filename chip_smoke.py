@@ -94,7 +94,32 @@ started together), then runs these phases, each printing one JSON line:
     chunk, the engine ≡ ``impl="ref"`` (counts, hits, stats, every
     snapshot leaf, enumerated sets); and the paper's stock Q3 ``PARTITION
     BY [volume]`` through ``feed(events)`` ≡ plain ≡ the host
-    ``PartitionedEngine``.
+    ``PartitionedEngine``;
+14. recovery, checkpoints and the ``StreamService`` ingestion loop (in a
+    scratch directory under ``build/``, removed afterwards).  14a: the
+    service over phase 13's engine (1024 lanes, chunks of 262 144,
+    ``lane_cap`` 384), 4 chunks of raw dict events from one producer with
+    three malformed ones (the dead-letter queue's three reasons),
+    checkpoints every 2 chunks, a sink: one lane_route and one fused_scan
+    launch per chunk, one library load; the durable record and the sink ≡
+    each key's closed form ≡ a direct ``feed_keyed`` of the same encoded
+    chunks; accepted and end-to-end events/s, chunk latency p50/p99, per
+    chunk the encode, device step, log append and checkpoint times and
+    bytes, the encode/step overlap, ``queue_peak``.  14b: kill -9 on the
+    card: a ``RecoveringStreamRunner`` over a 64-lane engine with the
+    arena, checkpoints every 4 chunks, is SIGKILLed after chunk 11 in a
+    subprocess and resumed in another (chunks 8-10 replay through the
+    replay check); then the service's own kill -9 contract (a sink that
+    enumerates, SIGKILL after 3 deliveries, restart): records and alerts
+    deduplicated by chunk ≡ uninterrupted in-process runs.  14c: overflow
+    heal: a time window over a ring of 8 with ``strict_overflow``; the
+    service regrows and replays, and ≡ a service sized large from the
+    start, every count below 2^24.  14d: the single-stream adapter ≡ its
+    engine's direct ``feed_attrs``.
+
+Phase 8 also times ``bitvector`` alone on the device: its launches
+queued behind a spin kernel, so host work leaves no gap between them
+(CUDA events), beside the host time of one wrapper call.
 
 Then the kernels line and, last, ``{"ok": true, "device": {...}}``.  Every
 comparison of kernel and plain version is exact (tolerance 0): counts are
@@ -109,8 +134,12 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import os
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -219,6 +248,30 @@ def cuda_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def queued_ms(fn, reps: int, spin_cycles: int = 200_000_000):
+    """Device time per call of ``fn`` with no host work in it, by CUDA
+    events: the calls are queued behind a spin kernel, so the device runs
+    their kernels back to back once it ends.  Returns ``(device ms per
+    call, host ms per call to enqueue, spin ms)``; the spin must outlast
+    the enqueueing, which is checked."""
+    fn()
+    torch.cuda.synchronize()
+    s0, t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    s0.record()
+    torch.cuda._sleep(spin_cycles)
+    t0.record()
+    h0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = 1e3 * (time.perf_counter() - h0)
+    t1.record()
+    torch.cuda.synchronize()
+    spin_ms = s0.elapsed_time(t0)
+    check(host_ms < spin_ms, f"queued_ms: enqueueing took {host_ms:.2f} ms, "
+          f"longer than the {spin_ms:.2f} ms spin")
+    return t0.elapsed_time(t1) / reps, host_ms / reps, spin_ms
 
 
 def clone_state(state):
@@ -1268,8 +1321,12 @@ def phase_unfused(seed: int, main_run: dict, B: int = 1024,
     bv_bytes = 4 * (flat.numel() + T * B)
     bv_ops = len(specs) * T * B
     t_bytes, t_ops = bv_bytes / PEAK_BYTES_PER_S, bv_ops / PEAK_F32_FLOP_PER_S
+    bv_device, bv_host, bv_spin = queued_ms(
+        lambda: ops.bitvector(flat, specs), reps=200)
     res["bitvector"] = {
         "ms": cuda_ms(lambda: ops.bitvector(flat, specs), reps=20),
+        "device_ms": bv_device, "host_call_ms": bv_host,
+        "spin_ms": bv_spin,
         "plain_ms": cuda_ms(lambda: ref.bitvector(flat, specs), reps=5),
         "bound_ms": 1e3 * max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -2477,9 +2534,531 @@ def phase_part_exact(seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: recovery, checkpoints and the StreamService ingestion loop
+# ---------------------------------------------------------------------------
+
+# three malformed events, spread through the stream (as
+# examples/serve_monitored.py injects them), and the reasons they get
+SERVICE_JUNK = [{"type": "NOPE", "uid": "user-0"}, "not-an-event",
+                {"type": "A1", "uid": "user-0", "x": [1, 2]}]
+SERVICE_JUNK_REASONS = ["unknown_type", "not_a_dict", "bad_attr_value"]
+# 14b-d: 64 lanes, chunks of 4096 interleaved events (64 a lane)
+SMALL_L, SMALL_T, SMALL_CAP = 64, 4096, 128
+CRASH_CHUNKS, CRASH_AFTER, CRASH_EVERY = 16, 11, 4
+HEAL_QUERY = "SELECT * FROM S WHERE A1 ; A2 ; A3 WITHIN 2000 [t]"
+
+
+def raw_events(kidx, types, times=None) -> list:
+    """Raw dict events of the draws: ``{"type", "uid": "user-k"}``, no
+    ``uid`` for NULL keys; ``times`` adds ``"t"``."""
+    out = []
+    for i, (k, ty) in enumerate(zip(kidx.reshape(-1).tolist(),
+                                    types.reshape(-1).tolist())):
+        ev = {"type": PART_TYPES[ty]}
+        if k >= 0:
+            ev["uid"] = f"user-{k}"
+        if times is not None:
+            ev["t"] = float(times[i])
+        out.append(ev)
+    return out
+
+
+def with_junk(raws: list) -> list:
+    feed = list(raws)
+    for j, bad in enumerate(SERVICE_JUNK):
+        feed.insert(len(feed) // 2 + j * 3, bad)
+    return feed
+
+
+def log_counts(cum: dict, T: int) -> np.ndarray:
+    """Per global position counts of a durable record of one stream
+    (``counts`` keys are ``(chunk, t[, stream])``)."""
+    out = np.zeros(max((k[0] + 1) * T for k in cum["counts"]), np.int64)
+    for (c, t, *_), v in cum["counts"].items():
+        out[c * T + t] = v
+    return out
+
+
+def cumulative_of(counts_per_chunk) -> dict:
+    """The durable-record form (``MatchLog.cumulative``) of one direct run
+    of a partitioned engine: ``counts`` ``{(chunk, t): v}`` and sorted hit
+    positions."""
+    counts, hits = {}, []
+    for c, (cnt, h) in enumerate(counts_per_chunk):
+        for t in np.nonzero(cnt)[0].tolist():
+            counts[(c, t)] = int(cnt[t])
+        hits += h
+    return {"hits": sorted(hits), "counts": counts}
+
+
+def overlap_s(a, b) -> float:
+    """Seconds during which a span of ``a`` and a span of ``b`` both run
+    (each list's spans come from one thread and do not overlap)."""
+    return sum(max(0.0, min(x1, y1) - max(x0, y0))
+               for x0, x1 in a for y0, y1 in b)
+
+
+def instrument(svc, eng):
+    """Host-clock spans of the service's steps, per chunk: the adapter's
+    encode (encoder thread), the engine's feed (device thread, ends in the
+    copy of the counts to the host), the emission-log append, the
+    checkpoint call (engine snapshot to the host and the hand-off) and the
+    background write (with its bytes).  Also keeps each encoded chunk."""
+    spans = {k: [] for k in ("encode", "step", "log", "checkpoint",
+                             "write")}
+    encoded, ckpt_bytes = [], []
+
+    def wrap(obj, name, key, keep=None):
+        fn = getattr(obj, name)
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            spans[key].append((t0, time.perf_counter()))
+            if keep is not None:
+                keep(a, out)
+            return out
+        setattr(obj, name, timed)
+
+    wrap(svc.adapter, "encode", "encode",
+         keep=lambda a, out: encoded.append(out))
+    wrap(eng, svc.adapter.feed_method, "step")
+    wrap(svc.runner.log, "append", "log")
+    wrap(svc.runner, "checkpoint", "checkpoint")
+    wrap(svc.runner.manager, "_write", "write",
+         keep=lambda a, out: ckpt_bytes.append(
+             sum(arr.nbytes for _, arr in a[1])))
+    return spans, encoded, ckpt_bytes
+
+
+def ms_list(spans) -> list:
+    return [1e3 * (b - a) for a, b in spans]
+
+
+def run_service(eng, directory, raws, **kw):
+    """Submit every raw event from one producer (``block=True``), drain,
+    close.  Returns ``(service, receipts, alerts, seconds of the submit
+    loop, seconds to the end of the drain, instrumentation)``."""
+    from repro_torch.runtime import StreamService
+    alerts = []
+    svc = StreamService(eng, str(directory),
+                        sinks=[lambda c, h: alerts.append((c, list(h)))],
+                        **kw)
+    inst = instrument(svc, eng)
+    t0 = time.perf_counter()
+    receipts = [svc.submit(r, block=True, timeout=600.0) for r in raws]
+    t_sub = time.perf_counter() - t0
+    svc.drain(pad=True, timeout=600.0)
+    t_end = time.perf_counter() - t0
+    svc.close()
+    return svc, receipts, alerts, t_sub, t_end, inst
+
+
+def phase_service(seed: int, work: Path, L: int = 1024, T: int = 262144,
+                  cap: int = 384, n_chunks: int = 4) -> dict:
+    """14a: the StreamService over phase 13's engine at full width: raw
+    dict events from one producer, validation and the dead-letter queue,
+    checkpoints every 2 chunks, a sink; the durable record and the sink ≡
+    each key's closed form ≡ a direct feed_keyed run of the same chunks."""
+    from repro_torch.kernels.build import LIBRARY
+    from repro_torch.runtime import EventValidator, cumulative_matches
+    t_start = time.perf_counter()
+    eps = 3200
+    query = MAIN_QUERY.format(eps)
+    kidx, types, keys = part_draws(seed + 50, L, T, n_chunks)
+    feed = with_junk(raw_events(kidx, types))
+    eng = part_engine(query, T, L, cap)
+    dev = eng.device
+    d = work / "service"
+    loads = LIBRARY.loads
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_launches()
+    svc, receipts, alerts, t_sub, t_end, (spans, encoded, ckpt_bytes) = \
+        run_service(eng, d, feed, checkpoint_every=2,
+                    validator=EventValidator(allowed_types=PART_TYPES))
+    launches = read_launches(counters)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = {k: 0 for k in launches}
+    want.update(lane_route=n_chunks, fused_scan=n_chunks)
+    check(launches == want, f"phase 14a launched {launches}, expected one "
+          "lane_route and one fused_scan launch per chunk")
+    check(LIBRARY.loads == loads == 1 and eng.compile_count == 1,
+          f"phase 14a: one library load ({LIBRARY.loads})")
+    m = svc.metrics
+    rejected = [r for r in receipts if r.status == "rejected"]
+    check([r.reason for r in rejected] == SERVICE_JUNK_REASONS and
+          [r["reason"] for r in svc.dlq.records] == SERVICE_JUNK_REASONS,
+          f"phase 14a: the dead-letter queue holds the three malformed "
+          f"events, got {[r.reason for r in rejected]}")
+    check(m.accepted == n_chunks * T and m.chunks == n_chunks and
+          m.rejected == 3 and m.events_processed == n_chunks * T,
+          f"phase 14a: accepted {m.accepted}, chunks {m.chunks}")
+    # the encoder's operands are the draws' codes and key hashes
+    codes = np.array([eng.encoder.vocab["type"].get(x, -1.0)
+                      for x in PART_TYPES], np.float32)
+    check(len(encoded) == n_chunks and all(
+        same(a.numpy()[:, 0], codes[types[i]]) and
+        same(k.numpy().view(np.uint32), keys[i])
+        for i, ((a, k), _) in enumerate(encoded)),
+        "phase 14a: the encoded chunks hold the draws' codes and keys")
+    cum = cumulative_matches(str(d))
+    closed = part_closed_form(kidx, types, L, eps)
+    check(same(log_counts(cum, T), closed[:len(log_counts(cum, T))]) and
+          cum["hits"] == np.nonzero(closed)[0].tolist(),
+          "phase 14a: the durable record ≡ each key's closed form")
+    check(max(cum["counts"].values()) < EXACT_LIMIT,
+          "phase 14a: counts stay below 2^24")
+    check(sorted(h for _, hs in alerts for h in hs) == cum["hits"] and
+          [c for c, _ in alerts] == sorted({c for c, _ in cum["counts"]}),
+          "phase 14a: the sink received every chunk's hits once")
+    # the same encoded chunks fed directly, each step timed alone (no
+    # producer or encoder thread holding the interpreter lock)
+    direct = part_engine(query, T, L, cap)
+    runs, direct_s = [], []
+    for (a, k), _ in encoded:
+        out, s = host_clock(lambda: direct.feed_keyed(a.to(dev), k.to(dev)))
+        runs.append(out)
+        direct_s.append(s)
+    check(cumulative_of(runs) == cum, "phase 14a: the durable record ≡ a "
+          "direct feed_keyed run of the same encoded chunks")
+    del direct, runs, encoded
+    ckpt_steps = [int(p.name.split("_")[1])
+                  for p in (d / "ckpt").iterdir() if p.is_dir()]
+    overlap = overlap_s(spans["encode"], spans["step"])
+    result = {
+        "phase": 14, "case": "a: StreamService at phase 13's width",
+        "query": query, "lanes": L, "T": T, "lane_cap": cap,
+        "chunks": n_chunks, "events_submitted": len(feed),
+        "launches": launches, "compile_count": eng.compile_count,
+        "counters": {k: v for k, v in vars(m).items()
+                     if k != "chunk_latency_s"},
+        "dlq_reasons": [r["reason"] for r in svc.dlq.records],
+        "matches": int(sum(cum["counts"].values())),
+        "hits": len(cum["hits"]), "alert_chunks": len(alerts),
+        "accepted_events_per_s": m.accepted / t_sub,
+        "end_to_end_events_per_s": m.accepted / t_end,
+        "submit_s": t_sub, "end_to_end_s": t_end,
+        "chunk_latency_s": m.latency_percentiles(),
+        "encode_ms": ms_list(spans["encode"]),
+        "device_step_ms": ms_list(spans["step"]),
+        "direct_step_ms": [1e3 * s for s in direct_s],
+        "log_append_ms": ms_list(spans["log"]),
+        "checkpoint_call_ms": ms_list(spans["checkpoint"]),
+        "checkpoint_write_ms": ms_list(spans["write"]),
+        "checkpoint_bytes": ckpt_bytes, "checkpoint_steps": ckpt_steps,
+        "encode_step_overlap_s": overlap,
+        "queue_peak": m.queue_peak, "peak_mem_GB": peak,
+        "seconds": time.perf_counter() - t_start}
+    emit(result)
+    del eng, svc
+    torch.cuda.empty_cache()
+    return result
+
+
+def crash_draws(seed):
+    """14b's stream: 64 lanes' keys and phase 13's type draws, 16 chunks
+    of 4096 (key index, type index, uint32 keys)."""
+    return part_draws(seed + 60, SMALL_L, SMALL_T, CRASH_CHUNKS)
+
+
+def crash_engine():
+    return part_engine(MAIN_QUERY.format(3200), SMALL_T, SMALL_L, SMALL_CAP,
+                       arena_capacity=1 << 18)
+
+
+def crash_run(directory, crash_after: int, seed: int) -> dict:
+    """The crash-recovery worker: a RecoveringStreamRunner over the arena
+    engine, checkpoints every 4 chunks; SIGKILLs itself once
+    ``crash_after`` chunks are fed (-1: never)."""
+    from repro_torch.runtime import RecoveringStreamRunner
+    _, types, keys = crash_draws(seed)
+    eng = crash_engine()
+    codes = torch.tensor([eng.encoder.vocab["type"].get(x, -1.0)
+                          for x in PART_TYPES], device=eng.device)
+    runner = RecoveringStreamRunner(eng, str(directory), every=CRASH_EVERY,
+                                    feed_method="feed_keyed")
+    resumed = runner.chunk_index if runner.resume() else None
+    replayed = 0
+    for i in range(runner.chunk_index, CRASH_CHUNKS):
+        attrs = codes[torch.from_numpy(types[i]).to(eng.device)][:, None]
+        _, _, emitted = runner.process(attrs, keys[i])   # replays checked
+        replayed += not emitted
+        if runner.chunk_index == crash_after:
+            print(json.dumps({"killed_after": crash_after}), flush=True)
+            os.kill(os.getpid(), signal.SIGKILL)
+    runner.close()
+    return {"resumed_at": resumed, "replayed": replayed,
+            "max_ptr": int(eng.state["arena"]["ptr"].max()),
+            "arena_ovf": bool(eng.state["arena"]["ovf"].any())}
+
+
+def service_kill_run(directory, crash_after: int, seed: int) -> dict:
+    """The service's kill -9 contract on the card: a StreamService over
+    the 64-lane arena engine, checkpoints every 2 chunks, a sink that
+    enumerates each chunk's first hit and appends ``{chunk, hits,
+    n_complex}`` durably; SIGKILL after ``crash_after`` deliveries."""
+    from repro_torch.runtime import StreamService
+    kidx, types, _ = crash_draws(seed + 1)
+    raws = raw_events(kidx[:12], types[:12])
+    eng = crash_engine()
+    path = Path(directory) / "alerts.jsonl"
+    n = [0]
+
+    def sink(chunk, hits):
+        n_ces = len(eng.enumerate(hits[0]))
+        with open(path, "a") as f:
+            f.write(json.dumps({"chunk": chunk, "hits": hits,
+                                "n_complex": n_ces}) + "\n")
+            f.flush()
+            os.fsync(f.fileno())
+        n[0] += 1
+        if 0 <= crash_after <= n[0]:
+            os.kill(os.getpid(), signal.SIGKILL)    # kill -9 mid-chunk
+    svc = StreamService(eng, str(directory), sinks=[sink],
+                        checkpoint_every=2)
+    for r in raws:
+        svc.submit(r, block=True, timeout=600.0)
+    svc.drain(pad=True, timeout=600.0)
+    svc.close()
+    return {"chunks": svc.metrics.chunks,
+            "skipped": svc.metrics.skipped_chunks,
+            "replayed": svc.metrics.replayed_chunks}
+
+
+def worker(args: list, timeout: float = 600.0):
+    """Run chip_smoke.py in one of its worker modes; (rc, last JSON line
+    of its output or None, stderr's tail)."""
+    p = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")]
+                       + args, capture_output=True, text=True,
+                       timeout=timeout)
+    lines = [ln for ln in p.stdout.splitlines() if ln.startswith("{")]
+    return p.returncode, (json.loads(lines[-1]) if lines else None), \
+        p.stderr[-2000:]
+
+
+def delivered(path: Path) -> tuple:
+    """Alerts deduplicated by chunk (a redelivered chunk must carry the
+    same hits), with the first delivery's enumerated count; and the
+    redeliveries, ``[chunk, complex events at the first delivery, at
+    the redelivery]``.  A redelivery after a restart reaches the sinks
+    before the replay that rebuilds its roots, so only the first delivery
+    of a chunk past the checkpoint can enumerate."""
+    out, redelivered = {}, []
+    for line in path.read_text().splitlines():
+        rec = json.loads(line)
+        c = rec.pop("chunk")
+        if c in out:
+            redelivered.append([c, out[c]["n_complex"], rec["n_complex"]])
+            check(out[c]["hits"] == rec["hits"], f"phase 14b: chunk {c} "
+                  "redelivered with other hits")
+        else:
+            out[c] = rec
+    return out, redelivered
+
+
+def phase_kill9(seed: int, work: Path) -> dict:
+    """14b: kill -9 on the card, the runner and the service.  Each crash
+    and restart is a subprocess over the same directory; the durable
+    record equals an uninterrupted in-process run."""
+    from repro_torch.runtime import cumulative_matches
+    t_start = time.perf_counter()
+    out = {"phase": 14, "case": "b: kill -9 and restart on the card",
+           "lanes": SMALL_L, "T": SMALL_T, "arena_capacity": 1 << 18}
+
+    # the runner: oracle in-process, then crash + restart
+    counters = reset_launches()
+    oracle = crash_run(work / "runner_ref", -1, seed)
+    out["launches"] = read_launches(counters)
+    want = {k: 0 for k in out["launches"]}
+    want.update(lane_route=CRASH_CHUNKS, fused_scan=CRASH_CHUNKS,
+                arena_update=CRASH_CHUNKS)
+    check(out["launches"] == want, f"phase 14b launched "
+          f"{out['launches']}, expected one router, fused and store launch "
+          "per chunk")
+    check(not oracle["arena_ovf"], "phase 14b: arena ovf stays clear")
+    d = work / "runner_crash"
+    rc, first, err = worker(["--crash-worker", str(d), "--crash-after",
+                             str(CRASH_AFTER), "--seed", str(seed)])
+    check(rc == -signal.SIGKILL and first == {"killed_after": CRASH_AFTER},
+          f"phase 14b: the runner worker dies by SIGKILL, rc={rc}: {err}")
+    rc, second, err = worker(["--crash-worker", str(d), "--seed",
+                              str(seed)])
+    check(rc == 0 and second["resumed_at"] == 8 and
+          second["replayed"] == CRASH_AFTER - 8,
+          f"phase 14b: the restart resumes at chunk 8 and replays chunks "
+          f"8-10 through the replay check, rc={rc} {second}: {err}")
+    want_cum = cumulative_matches(str(work / "runner_ref"))
+    check(want_cum["hits"] and cumulative_matches(str(d)) == want_cum,
+          "phase 14b: the runner's record after kill -9 ≡ the "
+          "uninterrupted run")
+    out["runner"] = {"oracle": oracle, "restart": second,
+                     "hits": len(want_cum["hits"]),
+                     "matches": int(sum(want_cum["counts"].values()))}
+
+    # the service's own contract: alerts deduplicated by chunk
+    ref_dir = work / "service_ref"
+    ref_dir.mkdir()
+    service_kill_run(ref_dir, -1, seed)
+    d = work / "service_crash"
+    d.mkdir()
+    rc, _, err = worker(["--service-worker", str(d), "--crash-after", "3",
+                         "--seed", str(seed)])
+    check(rc == -signal.SIGKILL, f"phase 14b: the service worker dies by "
+          f"SIGKILL, rc={rc}: {err}")
+    rc, second, err = worker(["--service-worker", str(d), "--seed",
+                              str(seed)])
+    # every chunk the killed run logged (at least the 3 delivered) is
+    # inside the restored checkpoint or replays under the high-water mark;
+    # the async checkpoint of chunk 2 may not have published before the kill
+    check(rc == 0 and second["skipped"] + second["replayed"] >= 3,
+          f"phase 14b: the restarted service skips or replays what the "
+          f"killed run logged, rc={rc} {second}: {err}")
+    want_cum = cumulative_matches(str(ref_dir))
+    check(want_cum["hits"] and cumulative_matches(str(d)) == want_cum,
+          "phase 14b: the service's record after kill -9 ≡ the "
+          "uninterrupted run")
+    (got, redelivered), (ref_alerts, ref_re) = \
+        delivered(d / "alerts.jsonl"), delivered(ref_dir / "alerts.jsonl")
+    check(got == ref_alerts and not ref_re, "phase 14b: alerts "
+          "deduplicated by chunk, enumerated counts included, ≡ the "
+          "uninterrupted run")
+    out["service"] = {"restart": second, "alert_chunks": len(got),
+                      "redelivered": redelivered,
+                      "complex_events": sum(r["n_complex"]
+                                            for r in got.values()),
+                      "hits": len(want_cum["hits"])}
+    out["seconds"] = time.perf_counter() - t_start
+    emit(out)
+    return out
+
+
+def phase_heal(seed: int, work: Path, n_chunks: int = 6) -> dict:
+    """14c: overflow heal on the card: a time window over an undersized
+    ring with strict_overflow.  The first three chunks are sparse in time
+    (32 time units an event), the rest dense (1), so the ring of 8 first
+    overflows after a checkpoint: the service quarantines, restores it
+    onto a regrown ring and replays.  Its alerts and durable record ≡ a
+    service over an engine sized large from the start."""
+    from repro_torch.runtime import cumulative_matches
+    from repro_torch.vector import PartitionedStreamingEngine, VectorEngine
+    t_start = time.perf_counter()
+    kidx, types, _ = part_draws(seed + 70, SMALL_L, SMALL_T, n_chunks)
+    times = np.cumsum(np.where(np.arange(kidx.size) < 3 * SMALL_T, 32, 1))
+    raws = raw_events(kidx, types, times=times)
+    res = {}
+    for name, mwe in (("small", 8), ("large", 64)):
+        counters = reset_launches()
+        eng = PartitionedStreamingEngine(
+            VectorEngine(HEAL_QUERY, max_window_events=mwe), ("uid",),
+            SMALL_T, SMALL_L, lane_cap=SMALL_CAP, strict_overflow=True)
+        svc, _, alerts, _, t_end, _ = run_service(
+            eng, work / f"heal_{name}", raws, checkpoint_every=2,
+            max_window_events_cap=1024)
+        res[name] = {"alerts": alerts, "metrics": svc.metrics,
+                     "ring": eng.window.ring,
+                     "cum": cumulative_matches(str(work / f"heal_{name}")),
+                     "launches": read_launches(counters), "s": t_end}
+    small, large = res["small"], res["large"]
+    check(small["metrics"].overflows >= 1 and small["metrics"].regrows >= 1
+          and small["metrics"].replayed_chunks >= 1 and
+          large["metrics"].overflows == 0, "phase 14c: the small ring "
+          "overflows, regrows and replays, the large one never overflows")
+    check(small["cum"]["hits"] and small["alerts"] == large["alerts"] and
+          small["cum"] == large["cum"], "phase 14c: the healed service's "
+          "alerts and durable record ≡ the large-from-the-start service")
+    check(max(small["cum"]["counts"].values()) < EXACT_LIMIT,
+          "phase 14c: counts stay below 2^24")
+    for name, r in res.items():
+        check(r["launches"]["fused_scan"] >= n_chunks and
+              r["launches"]["lane_route"] == r["launches"]["fused_scan"],
+              f"phase 14c {name}: every step through the router and the "
+              f"fused kernel, {r['launches']}")
+    out = {"phase": 14, "case": "c: overflow heal on the card",
+           "query": HEAL_QUERY, "lanes": SMALL_L, "T": SMALL_T,
+           "chunks": n_chunks,
+           "small": {"overflows": small["metrics"].overflows,
+                     "regrows": small["metrics"].regrows,
+                     "replayed_chunks": small["metrics"].replayed_chunks,
+                     "ring": small["ring"], "launches": small["launches"],
+                     "seconds": small["s"]},
+           "large": {"ring": large["ring"], "launches": large["launches"],
+                     "seconds": large["s"]},
+           "hits": len(small["cum"]["hits"]),
+           "max_count": max(small["cum"]["counts"].values()),
+           "seconds": time.perf_counter() - t_start}
+    emit(out)
+    return out
+
+
+def phase_single(seed: int, work: Path, T: int = 4096,
+                 n_chunks: int = 8) -> dict:
+    """14d: the single-stream adapter: a StreamingVectorEngine(batch=1)
+    behind the service ≡ its direct feed_attrs."""
+    from repro_torch.core.events import Event
+    from repro_torch.runtime import cumulative_matches
+    from repro_torch.vector import StreamingVectorEngine, VectorEngine
+    t_start = time.perf_counter()
+    query = MAIN_QUERY.format(100)
+    rng = np.random.default_rng(seed + 80)
+    types = rng.integers(0, len(PART_TYPES), (n_chunks, T))
+    raws = [{"type": PART_TYPES[t]} for t in types.reshape(-1).tolist()]
+    counters = reset_launches()
+    se = StreamingVectorEngine(VectorEngine(query), T, 1)
+    _, _, alerts, _, _, _ = run_service(se, work / "single", raws)
+    launches = read_launches(counters)
+    want = {k: 0 for k in launches}
+    want.update(fused_scan=n_chunks)
+    check(launches == want, f"phase 14d launched {launches}")
+    direct = StreamingVectorEngine(VectorEngine(query), T, 1)
+    hits = []
+    counts = []
+    for i in range(n_chunks):
+        attrs = direct.encoder.encode_streams(
+            [[Event(PART_TYPES[t], {}) for t in types[i].tolist()]])
+        c, h = direct.feed_attrs(torch.from_numpy(attrs).to(direct.device))
+        counts.append(c[:, 0])
+        hits += h
+    cum = cumulative_matches(str(work / "single"))
+    got = log_counts(cum, T)
+    want_counts = np.concatenate(counts)
+    check(hits and same(got, want_counts[:len(got)]) and
+          not want_counts[len(got):].any() and
+          sorted(h for _, hs in alerts for h in hs) == sorted(hits),
+          "phase 14d: the service's record and alerts ≡ direct feed_attrs")
+    out = {"phase": 14, "case": "d: single-stream adapter", "query": query,
+           "T": T, "chunks": n_chunks, "launches": launches,
+           "hits": len(hits), "seconds": time.perf_counter() - t_start}
+    emit(out)
+    return out
+
+
+def phase_runtime(seed: int) -> tuple:
+    """Phase 14: 14a-d in a scratch directory of the checkout's build/
+    tree (removed afterwards)."""
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "build"))
+    try:
+        svc = phase_service(seed, work)
+        kill = phase_kill9(seed, work)
+        phase_heal(seed, work)
+        phase_single(seed, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return svc, kill
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    # phase 14b's subprocesses: one crash-recovery run over a directory
+    parser.add_argument("--crash-worker", metavar="DIR",
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--service-worker", metavar="DIR",
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--crash-after", type=int, default=-1,
+                        help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not (ROOT / "src" / "repro_torch").is_dir():
         sys.exit("chip_smoke.py runs from a checkout of the repository: "
@@ -2489,6 +3068,11 @@ def main() -> None:
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.crash_worker or args.service_worker:
+        run = crash_run if args.crash_worker else service_kill_run
+        emit(run(args.crash_worker or args.service_worker,
+                 args.crash_after, args.seed))
+        return
 
     t_main = time.perf_counter()
     spans = {}
@@ -2517,6 +3101,7 @@ def main() -> None:
     wide_res = phase("12 arena at 1024", phase_enum_wide, seed)
     part_res, part_arena = phase("13a partitioned", phase_part, seed)
     exact_res = phase("13b partitioned exactness", phase_part_exact, seed)
+    svc_res, kill_res = phase("14 service, recovery", phase_runtime, seed)
     emit({"phase_seconds": spans,
           "total_s": time.perf_counter() - t_main})
     unf = unf_res["kernels"]
@@ -2538,7 +3123,8 @@ def main() -> None:
         "phase11_n_split": nine_res["fused_scan_n_split"],
         "phase13_ms": part_res["fused_scan_ms"],
         "phase13_bound_ms": part_res["fused_scan_bound_ms"],
-        "phase13_n_split": part_res["fused_scan_n_split"]}, {
+        "phase13_n_split": part_res["fused_scan_n_split"],
+        "phase14_launches": svc_res["launches"]["fused_scan"]}, {
         "name": "arena_update", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/arena_update.cu",
         "replaces": "src/repro/kernels/arena_update.py:88",
@@ -2558,7 +3144,8 @@ def main() -> None:
         "phase12_launches": wide_res["launches"]["arena_update"],
         "phase13_ms": part_arena["store_kernel_ms"],
         "phase13_bound_ms": part_arena["store_bound_ms"],
-        "phase13_launches": part_arena["launches"]["arena_update"]}, {
+        "phase13_launches": part_arena["launches"]["arena_update"],
+        "phase14_launches": kill_res["launches"]["arena_update"]}, {
         "name": "bitvector", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bitvector.cu",
         "replaces": "src/repro/kernels/bitvector.py:45",
@@ -2568,7 +3155,9 @@ def main() -> None:
         "plain_ms": unf["bitvector"]["plain_ms"],
         "bound_ms": unf["bitvector"]["bound_ms"],
         "bound_by": unf["bitvector"]["bound_by"],
-        "library_ms": None, "launch_floor_ms": launch_floor_ms}, {
+        "library_ms": None, "launch_floor_ms": launch_floor_ms,
+        "device_ms": unf["bitvector"]["device_ms"],
+        "host_call_ms": unf["bitvector"]["host_call_ms"]}, {
         "name": "cea_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/cea_scan.cu",
         "replaces": "src/repro/kernels/cea_scan.py:195",
@@ -2606,7 +3195,8 @@ def main() -> None:
         "library_ms": None,
         "chunk1_ms": part_res["lane_route_ms_chunk1"],
         "chunk1_plain_ms": part_res["lane_route_plain_ms_chunk1"],
-        "phase13b_checks": exact_res["router_checks"]}]})
+        "phase13b_checks": exact_res["router_checks"],
+        "phase14_launches": svc_res["launches"]["lane_route"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,0 +1,16 @@
+"""Crash-only streaming and the ingestion service over the port's engines:
+retries, heartbeats and stragglers (:mod:`.fault_tolerance`), checkpointed
+recovery with exactly-once emission (:mod:`.recovery`) and the resilient
+:class:`StreamService` (:mod:`.service`)."""
+from .fault_tolerance import (HeartbeatMonitor, RetryPolicy, StepTimer,
+                              run_with_retries)
+from .recovery import MatchLog, RecoveringStreamRunner, cumulative_matches
+from .service import (DeadLetterQueue, EventValidator, Receipt,
+                      ServiceMetrics, StreamService, StreamServiceError,
+                      TokenBucket)
+
+__all__ = ["HeartbeatMonitor", "RetryPolicy", "StepTimer",
+           "run_with_retries",
+           "MatchLog", "RecoveringStreamRunner", "cumulative_matches",
+           "DeadLetterQueue", "EventValidator", "Receipt", "ServiceMetrics",
+           "StreamService", "StreamServiceError", "TokenBucket"]

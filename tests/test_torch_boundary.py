@@ -1,5 +1,6 @@
-"""The port's import boundary: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the reference package ``repro``."""
+"""The port's import boundary: ``repro_torch``, ``chip_smoke.py`` and the
+port's examples (``examples/torch_*.py``) import neither JAX nor anything
+of the reference package ``repro``."""
 import ast
 import os
 import subprocess
@@ -10,7 +11,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _module_names():

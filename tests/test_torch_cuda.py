@@ -1137,3 +1137,157 @@ def test_partitioned_kernels_match_plain_on_churn(dev, evict):
             for p, v in got.items()} == \
         {p: sorted((c.start, c.end, c.data) for c in v)
          for p, v in want.items()}
+
+
+# ---------------------------------------------------------------------------
+# recovery and the service on the card: replay determinism
+# ---------------------------------------------------------------------------
+
+def assert_same_snapshot(a, b):
+    assert a["meta"] == b["meta"]
+    assert a["arrays"].keys() == b["arrays"].keys()
+    for k, v in a["arrays"].items():
+        w = b["arrays"][k]
+        assert v.dtype == w.dtype and v.shape == w.shape, k
+        assert v.tobytes() == w.tobytes(), k
+
+
+def test_partitioned_replay_is_bit_identical_on_card(dev):
+    """Snapshot, feed a chunk, restore, feed it again: the router's ballots
+    and walk, the fused kernel and the store kernel's id ranks give the
+    same counts, hits and every snapshot leaf byte for byte (the
+    recovery runner's replay check relies on it)."""
+    eng = churn_engine(None, "lru")
+    chunks = churn_chunks(eng.encoder, np.random.default_rng(7), 4)
+    for attrs, keys in chunks[:2]:
+        eng.feed_keyed(attrs.to(dev), keys)
+    snap0 = eng.snapshot()
+    runs = []
+    for _ in range(2):
+        eng.restore(snap0)
+        out = [eng.feed_keyed(a.to(dev), k) for a, k in chunks[2:]]
+        runs.append((out, eng.snapshot()))
+    (out1, snap1), (out2, snap2) = runs
+    assert any(h for _, h in out1)
+    for (c1, h1), (c2, h2) in zip(out1, out2):
+        assert c1.tobytes() == c2.tobytes() and h1 == h2
+    assert_same_snapshot(snap1, snap2)
+    assert eng.stats.evicted_lanes > 0
+
+
+def test_fused_split_feed_is_bit_identical_on_replay(dev):
+    """A forced split over two blocks per lane adds partial counts with
+    atomicAdd, in any order: exact for f32 integers below 2^24, so two
+    feeds from the same state agree byte for byte."""
+    ve = VectorEngine("SELECT * FROM S WHERE A1 ; A2 ; A3 WITHIN 3200 "
+                      "events", device=dev)
+    B, T = 256, 256
+    state0 = ve.init_state(B)
+    types = ["A1", "A2", "A3", "B1", "B2", "B3"]
+    t = ve.tables
+    outs = []
+    for attempt in range(2):
+        state = state0.clone()
+        counts = []
+        for i in range(3):
+            attrs = type_attrs_np(ve.encoder, np.random.default_rng(i), T, B,
+                                  types).to(dev)
+            m, _ = ops.cer_pipeline(
+                attrs, ve.encoder.specs, t.class_of, t.class_ind, t.m_all,
+                t.finals[None, :], state, init_mask=t.init_mask,
+                window=ve.window, start_pos=(i * T) % ve.ring, split=2,
+                inplace=True)
+            counts.append(m.cpu().numpy())
+        assert fused_scan.KERNEL.last_plan[1] == 2
+        outs.append((np.stack(counts), state.cpu().numpy()))
+    assert outs[0][0].max() > 0 and outs[0][0].max() < 2 ** 24
+    assert outs[0][0].tobytes() == outs[1][0].tobytes()
+    assert outs[0][1].tobytes() == outs[1][1].tobytes()
+
+
+def type_attrs_np(encoder, rng, T, B, types):
+    codes = np.array([encoder.vocab["type"].get(x, -1.0) for x in types],
+                     np.float32)
+    return torch.from_numpy(codes[rng.integers(0, len(types), (T, B))]
+                            [:, :, None])
+
+
+def keyed_event_chunks(n_chunks, T, seed):
+    from repro_torch.core.events import Event
+    rng = random.Random(seed)
+    evs = [Event(rng.choice(["A1", "A2", "A3", "B1"]),
+                 {} if rng.random() < 0.05
+                 else {"uid": rng.choice(["u1", "u2", 7, None, "u3"])})
+           for _ in range(n_chunks * T)]
+    return [evs[lo:lo + T] for lo in range(0, len(evs), T)]
+
+
+def test_runner_resumes_cuda_engine_onto_fresh_cuda_engine(dev, tmp_path):
+    """A recovery directory written by a runner over a CUDA engine (router,
+    fused and store kernels) resumes onto a fresh CUDA engine; the
+    cumulative match set equals an uninterrupted CUDA run and a CPU run."""
+    from repro_torch.runtime import RecoveringStreamRunner, cumulative_matches
+    chunks = keyed_event_chunks(12, 1024, 11)
+
+    def run(device, d, stop=None, resume=False):
+        r = RecoveringStreamRunner(churn_engine(device, "lru"), str(d),
+                                   every=4)
+        if resume:
+            assert r.resume() and r.chunk_index == 4 and r.replaying
+        flags = [r.process(ch)[2] for ch in chunks[r.chunk_index:stop]]
+        if stop is None:
+            r.close()
+        else:
+            r.manager.wait()
+        return flags
+
+    assert all(run(None, tmp_path / "cuda"))
+    assert all(run("cpu", tmp_path / "cpu"))
+    run(None, tmp_path / "crashed", stop=7)
+    assert run(None, tmp_path / "crashed", resume=True) == \
+        [False] * 3 + [True] * 5
+    want = cumulative_matches(str(tmp_path / "cpu"))
+    assert want["hits"]
+    assert cumulative_matches(str(tmp_path / "cuda")) == want
+    assert cumulative_matches(str(tmp_path / "crashed")) == want
+
+
+def test_service_on_cuda_engine_matches_cpu_engine(dev, tmp_path):
+    """The same raws through a service over a CUDA partitioned engine and
+    over a CPU one: receipts, alerts, counters, the emission log and the
+    dead-letter file agree; one router and one fused launch per chunk."""
+    from repro_torch.runtime import EventValidator, StreamService
+    rng = np.random.default_rng(2)
+    raws = [{"type": "ABC"[int(rng.integers(0, 3))], "t": float(i),
+             "uid": int(rng.integers(0, 6))} for i in range(96 * 16)]
+    raws[40:40] = [{"type": "Z", "t": 1.0}, "junk", {"t": 2.0}]
+    out = {}
+    for device in (None, "cpu"):
+        ve = VectorEngine("SELECT * FROM S WHERE A ; B+ ; C WITHIN 30 [t]",
+                          max_window_events=64, device=device)
+        from repro_torch.vector import PartitionedStreamingEngine
+        eng = PartitionedStreamingEngine(ve, ("uid",), chunk_len=128,
+                                         num_lanes=8, strict_overflow=True)
+        alerts = []
+        d = tmp_path / str(device)
+        counters = [k.launches for k in (lane_route.KERNEL,
+                                         fused_scan.KERNEL)]
+        svc = StreamService(eng, str(d), checkpoint_every=3,
+                            sinks=[lambda c, h: alerts.append((c, h))],
+                            validator=EventValidator(
+                                allowed_types={"A", "B", "C"}))
+        rc = [svc.submit(r, block=True, timeout=60.0) for r in raws]
+        svc.drain(pad=True, timeout=120.0)
+        svc.close()
+        launches = [k.launches - n for k, n in zip(
+            (lane_route.KERNEL, fused_scan.KERNEL), counters)]
+        m = {k: v for k, v in vars(svc.metrics).items()
+             if k not in ("chunk_latency_s", "queue_peak")}
+        out[device] = (alerts, [(r.status, r.seq, r.reason) for r in rc], m,
+                       (d / "matches.log").read_bytes(),
+                       (d / "dead_letter.jsonl").read_bytes(), launches)
+    gpu, cpu = out[None], out["cpu"]
+    assert gpu[:5] == cpu[:5]
+    assert gpu[2]["chunks"] == 12 and gpu[2]["rejected"] == 3
+    assert gpu[5] == [12, 12] and cpu[5] == [0, 0]
+    assert gpu[0]
