@@ -117,6 +117,27 @@ started together), then runs these phases, each printing one JSON line:
     start, every count below 2^24.  14d: the single-stream adapter ≡ its
     engine's direct ``feed_attrs``.
 
+15. the ``QueryFleet`` on the card.  15a: ``QueryFleet(chunk_len=256,
+    batch=1024)`` fed phase 9's draws as ``Event``s over 8 chunks, two
+    window buckets (phase 9's queries ``WITHIN 3200 events``; two queries
+    ``WITHIN 1600``) under churn: adds at chunks 2 and 3, a fifth query at
+    chunk 4 (Ŝ 28 → 35: the wide build) removed at 5, a remove and re-add
+    under a fresh qid at 6 (a cache hit); every query lifetime ≡ its
+    closed form over its suffix on all 1024 lanes; one fused_scan launch
+    per bucket per chunk, one library load, ``compile_count`` ≤
+    ``distinct_geometries``; per chunk the feed split into encode, device
+    step and the rest, per repack its time and bytes, and each bucket's
+    kernel (32-state, 16-state and wide) ≡ plain on one chunk after a
+    repack with its time and bound.  15b: the fleet with the arena at
+    phase 5's width (64 lanes, ``arena_capacity=2**18``), a repack with
+    the arena live and a re-add that reuses the cached arena tables: ≡ a
+    plain fleet on every chunk (counts, node store, cells, roots, cost
+    reports), lane 0 ≡ the host ``Engine``.  15c: the ``StreamService``
+    over a batch-1 fleet ≡ a direct ``fleet.feed``; a fleet runner
+    SIGKILLed mid-churn in a subprocess (``--fleet-worker``) and resumed ≡
+    an uninterrupted run.  15d: 14 live predicates padded to 16 bits and
+    eight attribute columns through the fused kernel ≡ a plain fleet.
+
 Phase 8 also times ``bitvector`` alone on the device: its launches
 queued behind a spin kernel, so host work leaves no gap between them
 (CUDA events), beside the host time of one wrapper call.
@@ -3049,6 +3070,548 @@ def phase_runtime(seed: int) -> tuple:
     return svc, kill
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the QueryFleet on the card
+# ---------------------------------------------------------------------------
+
+# 15a: bucket A holds the phase-9 queries WITHIN 3200 events, bucket B two
+# queries WITHIN 1600; churn applied before feeding chunk c:
+# (op, qid, sequence, window)
+FLEET_CHURN = {
+    0: [("add", "a0", PACKED_SEQS[0], 3200), ("add", "a1", PACKED_SEQS[1],
+                                              3200),
+        ("add", "a2", PACKED_SEQS[2], 3200),
+        ("add", "b0", "A1 ; A2 ; A3", 1600)],
+    2: [("add", "a3", PACKED_SEQS[3], 3200)],
+    3: [("add", "b1", "B1 ; B2 ; B3", 1600)],
+    4: [("add", "a4", "A2 ; B1 ; A3", 3200)],     # Ŝ 28 → 35: the wide build
+    5: [("remove", "a4", None, None)],
+    6: [("remove", "a1", None, None),
+        ("add", "a1b", PACKED_SEQS[1], 3200)],    # re-added: a cache hit
+}
+# 15a's kernel checks: the bucket (by window) just repacked before chunk c
+FLEET_CHECKS = {2: 3200, 3: 1600, 4: 3200}
+# 15d: 14 live predicates over five attributes, padded to 16 bits
+BITS16_QUERIES = (
+    "SELECT * FROM S WHERE (E AS a; E AS b; E AS c; E AS d) FILTER "
+    "a[x > 1] AND a[y < 8] AND b[x > 3] AND b[z < 6] AND c[u > 2] AND "
+    "c[v < 7] AND d[x < 5] AND d[y > 4] WITHIN 64 events",
+    "SELECT * FROM S WHERE (E AS a; E AS b) FILTER a[z > 6] AND a[u < 3] "
+    "AND b[v > 5] AND b[y > 2] AND a[x = 4] WITHIN 64 events")
+# 15c: the fleet worker's churn, keyed to the chunk index (applied before
+# feeding it), as tests/test_fleet.py's kill -9 worker
+FLEET_KILL_CHUNKS, FLEET_KILL_AFTER, FLEET_KILL_EVERY = 12, 8, 3
+
+
+def seq3_counts_all(codes: np.ndarray, eps: int) -> np.ndarray:
+    """:func:`seq3_counts` for every lane at once: at each A3 position j,
+    Σ over A2 positions i2 in [lo, j) of the A1s in [lo, i2), lo = max(0,
+    j - eps), from prefix sums."""
+    T, B = codes.shape
+    zero = np.zeros((1, B), np.int64)
+    a1 = np.vstack([zero, np.cumsum(codes == 0, axis=0)])
+    a2 = codes == 1
+    q = np.vstack([zero, np.cumsum(np.where(a2, a1[:-1], 0), axis=0)])
+    n2 = np.vstack([zero, np.cumsum(a2, axis=0)])
+    j = np.arange(T)
+    lo = np.maximum(0, j - eps)
+    out = (q[j] - q[lo]) - (n2[j] - n2[lo]) * a1[lo]
+    return np.where(codes == 2, out, 0)
+
+
+def type_events(types_tb: np.ndarray) -> list:
+    """B streams of ``Event``s of a (T, B) type-index array."""
+    from repro_torch.core.events import Event
+    return [[Event(PART_TYPES[t], {}) for t in col]
+            for col in types_tb.T.tolist()]
+
+
+def bucket_engine(fleet, eps):
+    """The engine of the fleet's ``WITHIN eps events`` bucket, or None."""
+    b = fleet._buckets.get(("events", float(eps), None))
+    return None if b is None else b.engine
+
+
+def state_bytes(state) -> int:
+    if isinstance(state, dict):
+        return sum(state_bytes(v) for v in state.values())
+    return state.numel() * state.element_size()
+
+
+def fleet_kernel_check(eng, state, attrs, start, what) -> dict:
+    """One chunk of a bucket's device step from a saved state: the fused
+    kernel ≡ its plain version (counts and ring), each timed on the card,
+    and the bound from the chunk's classes."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_scan import KERNEL
+    from repro_torch.runtime.fleet import _pad_attrs
+    o = eng._operands
+    attrs = _pad_attrs(attrs, eng.geometry[4])
+
+    def run(st, impl, trace=False):
+        return ops.cer_pipeline(
+            attrs, o["specs"], o["class_of"], o["class_ind"], o["m_all"],
+            o["finals_q"], st, init_mask=o["init_mask"], window=eng.window,
+            start_pos=start, impl=impl, latest_q=o["latest_q"],
+            consume_sq=o["consume_sq"], inplace=True, return_trace=trace)
+    got = run(clone_state(state), "fused", trace=True)
+    plan = KERNEL.last_plan
+    want = run(clone_state(state), "ref")
+    check(same(got[0], want[0]) and same(got[1], want[1]),
+          f"{what}: fused_scan ≡ plain on one chunk (counts and ring)")
+    err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+    trace = got[2]
+    del got, want
+    st = clone_state(state)
+    ms = cuda_ms(lambda: run(st, "fused"), reps=3)
+    plain_ms = cuda_ms(lambda: run(st, "ref"), reps=1)
+    del st
+    B, W = attrs.shape[1], eng.window.ring
+    S, NQ = o["m_all"].shape[1], o["finals_q"].shape[0]
+    bound = scan_bound(o["m_all"], o["finals_q"], trace, B, W, S, NQ)
+    return {"S": S, "NQ": NQ, "k": len(o["specs"]), "W": W,
+            "state_bucket": eng._entry.state_bucket, "n_split": plan[1],
+            "use_smem": plan[0], "kernel_ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "max_abs_err": err}
+
+
+def phase_fleet(seed: int, B: int = 1024, n_chunks: int = 8) -> dict:
+    """15a: QueryFleet(chunk_len=256, batch=1024) on the card, phase 9's
+    draws as Events, the churn of ``FLEET_CHURN``; every live query ≡ its
+    closed form over its suffix on every lane."""
+    from repro_torch.kernels.build import LIBRARY
+    from repro_torch.runtime import QueryFleet
+    from repro_torch.runtime.fleet import _FleetStreamEngine
+    from repro_torch.vector.encoder import EventEncoder
+    T = 256
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(seed + 9)        # phase 9's draws
+    draws = rng.integers(0, len(PART_TYPES), (n_chunks * T, B))
+    fleet = QueryFleet(chunk_len=T, batch=B)
+    acc = {"encode": 0.0, "step": 0.0}
+    enc_orig = EventEncoder.encode_streams
+    step_orig = _FleetStreamEngine._device_step
+
+    def enc_timed(self, streams):
+        t0 = time.perf_counter()
+        out = enc_orig(self, streams)
+        acc["encode"] += time.perf_counter() - t0
+        return out
+
+    def step_timed(self, attrs, event_ts):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_orig(self, attrs, event_ts)
+        torch.cuda.synchronize()
+        acc["step"] += time.perf_counter() - t0
+        return out
+    texts, lives, repacks, chunks, saved = {}, {}, [], [], {}
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_launches()
+    EventEncoder.encode_streams = enc_timed
+    _FleetStreamEngine._device_step = step_timed
+    try:
+        for c in range(n_chunks):
+            for op, qid, seq, eps in FLEET_CHURN.get(c, ()):
+                if op == "add":
+                    texts[qid] = (seq, eps)
+                seq, eps = texts[qid]
+                old = bucket_engine(fleet, eps)
+                hits0 = fleet.cache_hits
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if op == "add":
+                    fleet.add_query(PACKED_QUERY.format(seq, eps), qid=qid)
+                    lives[qid] = (c, [])
+                else:
+                    fleet.remove_query(qid)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+                new = bucket_engine(fleet, eps)
+                repacks.append({
+                    "chunk": c, "op": op, "qid": qid, "ms": ms,
+                    "S_padded": new.geometry[0] if new else None,
+                    "bytes_to_host": state_bytes(old.state) if old else 0,
+                    "bytes_to_device": state_bytes(new.state) if new else 0,
+                    "cache_hit": fleet.cache_hits > hits0})
+            if c == 6:
+                check(repacks[-1]["cache_hit"], "phase 15a: the re-add "
+                      "under a fresh qid is a cache hit")
+            if c in FLEET_CHECKS:        # a bucket just repacked, kept for
+                eng = bucket_engine(fleet, FLEET_CHECKS[c])   # its check
+                saved[f"{FLEET_CHECKS[c]}@{c}"] = (
+                    eng, clone_state(eng.state), c)
+            streams = type_events(draws[c * T:(c + 1) * T])
+            acc.update(encode=0.0, step=0.0)
+            n0 = counters["fused_scan"].launches
+            t0 = time.perf_counter()
+            counts, hits = fleet.feed(streams)
+            feed_s = time.perf_counter() - t0
+            del streams
+            check(counters["fused_scan"].launches - n0 == fleet.num_buckets,
+                  f"phase 15a chunk {c}: one fused_scan launch per bucket")
+            for qid in fleet.live_qids:
+                lives[qid][1].append(
+                    counts[:, :, fleet.live_qids.index(qid)])
+            chunks.append({"chunk": c, "buckets": fleet.num_buckets,
+                           "queries": fleet.num_queries, "hits": len(hits),
+                           "feed_ms": 1e3 * feed_s,
+                           "encode_ms": 1e3 * acc["encode"],
+                           "device_step_ms": 1e3 * acc["step"],
+                           "copy_and_depack_ms": 1e3 * (
+                               feed_s - acc["encode"] - acc["step"])})
+            del counts, hits
+    finally:
+        EventEncoder.encode_streams = enc_orig
+        _FleetStreamEngine._device_step = step_orig
+    launches = read_launches(counters)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = {k: 0 for k in launches}
+    want["fused_scan"] = sum(ch["buckets"] for ch in chunks)
+    check(launches == want, f"phase 15a launched {launches}")
+    check(LIBRARY.loads == 1, f"phase 15a: one library load, got "
+          f"{LIBRARY.loads}")
+    check(fleet.compile_count <= fleet.distinct_geometries,
+          "phase 15a: compile_count ≤ distinct_geometries")
+    # every lifetime ≡ its closed form over the suffix after its add
+    n_counts = 0
+    for qid, (c0, got) in lives.items():
+        seq, eps = texts[qid]
+        own = packed_codes(draws[c0 * T:(c0 + len(got)) * T], PART_TYPES,
+                           seq.split(" ; "))
+        got = np.concatenate(got)
+        check(got.max() < EXACT_LIMIT, "phase 15a: counts below 2^24")
+        check(same(got, seq3_counts_all(own, eps)),
+              f"phase 15a: {qid} ({seq}) ≡ its closed form over chunks "
+              f"{c0}-{c0 + len(got) // T - 1} on all {B} lanes")
+        n_counts += int(got.sum())
+    del lives
+    kernels = {}
+    for key, (eng, state, c) in saved.items():
+        vocab = eng.encoder.vocab["type"]
+        check(eng.encoder.attrs == ("type",), "phase 15a: type-only "
+              "encoders")
+        lut = torch.tensor([vocab.get(t, -1.0) for t in PART_TYPES],
+                           device=eng.device)
+        attrs = lut[torch.from_numpy(draws[c * T:(c + 1) * T]).to(
+            eng.device)][:, :, None]
+        kernels[key] = fleet_kernel_check(eng, state, attrs, c * T,
+                                          f"phase 15a bucket {key}")
+        del state, attrs
+    del saved
+    out = {"phase": 15, "case": "a: QueryFleet at full width", "B": B,
+           "T": T, "chunks": n_chunks, "launches": launches,
+           "library_loads": LIBRARY.loads,
+           "compile_count": fleet.compile_count,
+           "distinct_geometries": fleet.distinct_geometries,
+           "cache_hits": fleet.cache_hits, "matches": n_counts,
+           "per_chunk": chunks, "repacks": repacks, "kernels": kernels,
+           "feed_ms_median": float(np.median([ch["feed_ms"]
+                                              for ch in chunks])),
+           "device_share": sum(ch["device_step_ms"] for ch in chunks)
+           / sum(ch["feed_ms"] for ch in chunks),
+           "peak_mem_GB": peak, "seconds": time.perf_counter() - t_start}
+    emit(out)
+    return out
+
+
+def arena_state_err(a, b, cap: int) -> float:
+    """Largest difference of two arena engines' count state and arena
+    (node store below the sink slot, cells, pointers)."""
+    ka, pa = a.state["arena"], b.state["arena"]
+    err = max_abs_err(a.state["C"], b.state["C"])
+    for name in ("kind", "pos", "maxs", "left", "right"):
+        err = max(err, max_abs_err(ka[name][:, :cap], pa[name][:, :cap]))
+    return max(err, max_abs_err(ka["cell"], pa["cell"]),
+               max_abs_err(ka["ptr"], pa["ptr"]))
+
+
+def phase_fleet_arena(seed: int, B: int = 64, n_chunks: int = 4) -> dict:
+    """15b: the fleet with the arena at phase 5's width (64 lanes, ring
+    3208, ``arena_capacity=2**18``): q1 (phase 5's query) and q2 from chunk
+    0, q2 removed before chunk 2 (a repack with the arena live) and re-added
+    under a fresh qid before chunk 3 (a cache hit that reuses the arena
+    tables).  The kernel fleet ≡ a plain fleet (``impl="ref"``) on every
+    chunk: counts, hits, count state, node store, cells, pointers, roots
+    and cost reports; lane 0 of q1 ≡ the host Engine."""
+    from repro_torch.runtime import QueryFleet
+    T, eps, cap = 256, 3200, 1 << 18
+    t_start = time.perf_counter()
+    q1, q2 = MAIN_QUERY.format(eps), PACKED_QUERY.format("B1 ; B2 ; B3",
+                                                          eps)
+    churn = {0: [("add", "q1", q1), ("add", "q2", q2)],
+             2: [("remove", "q2", None)], 3: [("add", "q2b", q2)]}
+    rng = np.random.default_rng(seed + 150)
+    draws = rng.integers(0, len(PART_TYPES), (n_chunks * T, B))
+    draws[:, 0] = rng.choice(len(PART_TYPES), n_chunks * T,
+                             p=[0.01] * 3 + [0.97 / 6] * 6)
+    fleets = {impl: QueryFleet(chunk_len=T, batch=B, arena_capacity=cap,
+                               impl=impl) for impl in ("fused", "ref")}
+    kern = fleets["fused"]
+    counters = reset_launches()
+    feed_ms, repack_ms, err, lane0, tables = [], [], 0.0, {}, None
+    for c in range(n_chunks):
+        for op, qid, text in churn.get(c, ()):
+            for impl, f in fleets.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if op == "add":
+                    f.add_query(text, qid=qid)
+                else:
+                    f.remove_query(qid)
+                torch.cuda.synchronize()
+                if impl == "fused":
+                    repack_ms.append(1e3 * (time.perf_counter() - t0))
+        if c == 0:
+            tables = kern._find_bucket("q1").engine._arena_tables
+        if c == 3:
+            check(kern._find_bucket("q2b").engine._arena_tables is tables,
+                  "phase 15b: the re-added query's bucket reuses the "
+                  "cached arena tables")
+        streams = type_events(draws[c * T:(c + 1) * T])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck, hk = kern.feed(streams)
+        feed_ms.append(1e3 * (time.perf_counter() - t0))
+        cp, hp = fleets["ref"].feed(streams)
+        check(same(ck, cp) and hk == hp, f"phase 15b chunk {c}: counts and "
+              "hits ≡ the plain fleet")
+        ek = kern._find_bucket("q1").engine
+        ep = fleets["ref"]._find_bucket("q1").engine
+        check_engines_equal(ek, ep, f"phase 15b chunk {c}")
+        check(not bool(ek.state["arena"]["ovf"].any()),
+              "phase 15b: arena ovf stays clear")
+        err = max(err, arena_state_err(ek, ep, cap))
+        check(kern.cost_report() == fleets["ref"].cost_report(),
+              f"phase 15b chunk {c}: cost reports (arena cells and nodes) "
+              "≡ the plain fleet's")
+        col = kern.live_qids.index("q1")
+        for t in np.nonzero(ck[:, 0, col])[0].tolist():
+            lane0[c * T + t] = ceset(kern.enumerate("q1", c * T + t, 0))
+    launches = read_launches(counters)
+    want = {k: 0 for k in launches}
+    want.update(fused_scan=n_chunks, arena_update=n_chunks)
+    check(launches == want, f"phase 15b launched {launches}")
+    stream0 = type_events(draws[:, :1])[0]
+    want_sets = host_sets(q1, stream0)
+    check(lane0 == want_sets, f"phase 15b: lane 0 of q1 enumerates what the "
+          f"host Engine finds ({sum(map(len, lane0.values()))} vs "
+          f"{sum(map(len, want_sets.values()))} complex events)")
+    rep = kern.cost_report()
+    out = {"phase": 15, "case": "b: the fleet with the arena", "B": B,
+           "T": T, "chunks": n_chunks, "arena_capacity": cap,
+           "launches": launches, "feed_ms": feed_ms,
+           "repack_ms": repack_ms, "max_abs_err": err,
+           "lane0_complex_events": sum(map(len, lane0.values())),
+           "arena_cells": {q: r["arena_cells"] for q, r in rep.items()},
+           "arena_nodes": {q: r["arena_nodes"] for q, r in rep.items()},
+           "cache_hits": kern.cache_hits,
+           "compile_count": kern.compile_count,
+           "seconds": time.perf_counter() - t_start}
+    emit(out)
+    return out
+
+
+def phase_fleet_bits16(seed: int, B: int = 256, n_chunks: int = 3) -> dict:
+    """15d: a bucket of 14 live predicates over five attributes (``NaN``
+    where an event lacks one), padded to 16 bits and eight attribute
+    columns, through the fused kernel ≡ a plain fleet; the kernel alone ≡
+    plain on one more chunk, with its time and bound."""
+    from repro_torch.core.events import Event
+    from repro_torch.runtime import QueryFleet
+    T = 256
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(seed + 160)
+    names = ("x", "y", "z", "u", "v")
+
+    def chunk():
+        vals = rng.integers(0, 10, (B, T, len(names))).tolist()
+        miss = (rng.random((B, T, len(names))) < 0.1).tolist()
+        return [[Event("E", {a: float(v) for a, v, m in
+                             zip(names, vs, ms) if not m})
+                 for vs, ms in zip(vrow, mrow)]
+                for vrow, mrow in zip(vals, miss)]
+    fleets = {impl: QueryFleet(chunk_len=T, batch=B, impl=impl)
+              for impl in ("fused", "ref")}
+    counters = reset_launches()
+    for c in range(n_chunks):
+        if c < len(BITS16_QUERIES):
+            for f in fleets.values():
+                f.add_query(BITS16_QUERIES[c], qid=f"w{c}")
+        streams = chunk()
+        ck, hk = fleets["fused"].feed(streams)
+        cp, hp = fleets["ref"].feed(streams)
+        check(same(ck, cp) and hk == hp, f"phase 15d chunk {c}: counts and "
+              "hits ≡ the plain fleet")
+        check(ck.max() < EXACT_LIMIT, "phase 15d: counts below 2^24")
+        check(same(fleets["fused"]._find_bucket("w0").engine.state,
+                   fleets["ref"]._find_bucket("w0").engine.state),
+              f"phase 15d chunk {c}: ring ≡ the plain fleet's")
+    launches = read_launches(counters)
+    want = {k: 0 for k in launches}
+    want["fused_scan"] = n_chunks
+    check(launches == want, f"phase 15d launched {launches}")
+    eng = fleets["fused"]._find_bucket("w0").engine
+    pk = eng.engine.packing
+    check((pk.num_bits, pk.padded_bits, eng.geometry[4]) == (14, 16, 8),
+          "phase 15d: 14 live bits padded to 16, six attributes to eight")
+    check(int(ck.sum()) > 0, "phase 15d: the queries match")
+    streams = chunk()
+    attrs = torch.from_numpy(eng.encoder.encode_streams(streams)).to(
+        eng.device)
+    kern = fleet_kernel_check(eng, clone_state(eng.state), attrs,
+                              n_chunks * T, "phase 15d")
+    out = {"phase": 15, "case": "d: 16 padded predicate bits", "B": B,
+           "T": T, "chunks": n_chunks, "launches": launches,
+           "matches": int(ck.sum()), "kernel": kern,
+           "seconds": time.perf_counter() - t_start}
+    emit(out)
+    return out
+
+
+def cumulative_nd(per_chunk) -> dict:
+    """The durable-record form (``MatchLog.cumulative``) of direct feeds:
+    ``counts`` ``{(chunk, *index): v}`` over nonzero cells, sorted hits."""
+    counts, hits = {}, set()
+    for c, (cnt, h) in enumerate(per_chunk):
+        nz = np.nonzero(cnt)
+        for idx, v in zip(zip(*(x.tolist() for x in nz)),
+                          cnt[nz].tolist()):
+            counts[(c, *idx)] = int(v)
+        hits.update(tuple(x) for x in h)
+    return {"hits": sorted(hits), "counts": counts}
+
+
+def fleet_service_queries():
+    """15c's batch-1 fleet: bucket A (phase 9's queries) and bucket B."""
+    return ([(f"a{i}", PACKED_QUERY.format(s, 3200))
+             for i, s in enumerate(PACKED_SEQS)]
+            + [("b0", PACKED_QUERY.format("A1 ; A2 ; A3", 1600))])
+
+
+def fleet_kill_run(directory, crash_after: int, seed: int) -> dict:
+    """15c's crash worker: a RecoveringStreamRunner over a 64-lane fleet on
+    the card, churn keyed to the chunk index (q b joins at 2, q c in a new
+    bucket at 5, q b leaves at 8), checkpoints every 3 chunks; SIGKILLs
+    itself once ``crash_after`` chunks are fed (-1: never)."""
+    from repro_torch.runtime import QueryFleet, RecoveringStreamRunner
+    T, L = 256, 64
+    rng = np.random.default_rng(seed + 170)
+    draws = rng.integers(0, len(PART_TYPES), (FLEET_KILL_CHUNKS * T, L))
+    fleet = QueryFleet(chunk_len=T, batch=L)
+    fleet.add_query(PACKED_QUERY.format(PACKED_SEQS[0], 3200), qid="qa")
+    churn = {2: ("add", "qb", PACKED_QUERY.format(PACKED_SEQS[1], 3200)),
+             5: ("add", "qc", PACKED_QUERY.format("A1 ; A2 ; A3", 1600)),
+             8: ("remove", "qb", None)}
+    runner = RecoveringStreamRunner(fleet, str(directory),
+                                    every=FLEET_KILL_EVERY)
+    resumed = runner.chunk_index if runner.resume() else None
+    replayed = 0
+    for i in range(runner.chunk_index, FLEET_KILL_CHUNKS):
+        op, qid, text = churn.get(i, (None, None, None))
+        if op == "add":
+            fleet.add_query(text, qid=qid)
+        elif op == "remove":
+            fleet.remove_query(qid)
+        _, _, emitted = runner.process(type_events(draws[i * T:(i + 1) * T]))
+        replayed += not emitted
+        if runner.chunk_index == crash_after:
+            print(json.dumps({"killed_after": crash_after}), flush=True)
+            os.kill(os.getpid(), signal.SIGKILL)
+    runner.close()
+    return {"resumed_at": resumed, "replayed": replayed,
+            "live_qids": fleet.live_qids}
+
+
+def phase_fleet_service(seed: int, work: Path, T: int = 4096,
+                        n_chunks: int = 8) -> dict:
+    """15c: the StreamService over a batch-1 fleet on the card ≡ a direct
+    ``fleet.feed`` of the same chunks; then a fleet runner SIGKILLed
+    mid-churn in a subprocess and resumed ≡ an uninterrupted run."""
+    from repro_torch.core.events import Event
+    from repro_torch.runtime import QueryFleet, cumulative_matches
+    t_start = time.perf_counter()
+
+    def mk():
+        fleet = QueryFleet(chunk_len=T, batch=1)
+        for qid, text in fleet_service_queries():
+            fleet.add_query(text, qid=qid)
+        return fleet
+    rng = np.random.default_rng(seed + 165)
+    types = rng.integers(0, len(PART_TYPES), (n_chunks, T))
+    raws = [{"type": PART_TYPES[t]} for t in types.reshape(-1).tolist()]
+    counters = reset_launches()
+    svc, receipts, alerts, t_sub, t_end, inst = run_service(
+        mk(), work / "fleet_service", raws, checkpoint_every=4)
+    launches = read_launches(counters)
+    want = {k: 0 for k in launches}
+    want["fused_scan"] = 2 * n_chunks
+    check(launches == want, f"phase 15c launched {launches}, expected one "
+          "fused_scan launch per bucket per chunk")
+    check(all(r.accepted for r in receipts) and svc.metrics.chunks ==
+          n_chunks, "phase 15c: every event accepted, every chunk stepped")
+    direct = mk()
+    per_chunk = [direct.feed([[Event(PART_TYPES[t], {})
+                               for t in types[i].tolist()]])
+                 for i in range(n_chunks)]
+    cum = cumulative_matches(str(work / "fleet_service"))
+    want_cum = cumulative_nd(per_chunk)
+    check(cum["hits"] and cum == want_cum and sorted(
+        tuple(h) for _, hs in alerts for h in hs) == want_cum["hits"],
+          "phase 15c: the service's record and alerts ≡ a direct "
+          "fleet.feed")
+    out = {"phase": 15, "case": "c: the service over a fleet, kill -9",
+           "service": {"T": T, "chunks": n_chunks,
+                       "events_per_s": len(raws) / t_end,
+                       "step_ms": ms_list(inst[0]["step"]),
+                       "encode_ms": ms_list(inst[0]["encode"]),
+                       "hits": len(cum["hits"])}}
+
+    # kill -9 mid-churn: the runner in-process, then crash and restart
+    counters = reset_launches()
+    oracle = fleet_kill_run(work / "fleet_ref", -1, seed)
+    launches = read_launches(counters)
+    want = {k: 0 for k in launches}
+    want["fused_scan"] = 5 + 2 * (FLEET_KILL_CHUNKS - 5)
+    check(launches == want, f"phase 15c runner launched {launches}")
+    d = work / "fleet_crash"
+    rc, first, err = worker(["--fleet-worker", str(d), "--crash-after",
+                             str(FLEET_KILL_AFTER), "--seed", str(seed)])
+    check(rc == -signal.SIGKILL and first == {"killed_after":
+                                              FLEET_KILL_AFTER},
+          f"phase 15c: the fleet worker dies by SIGKILL, rc={rc}: {err}")
+    rc, second, err = worker(["--fleet-worker", str(d), "--seed",
+                              str(seed)])
+    check(rc == 0 and second["resumed_at"] == 6 and second["replayed"] == 2
+          and second["live_qids"] == oracle["live_qids"] == ["qa", "qc"],
+          f"phase 15c: the restart resumes at chunk 6, replays 6-7 and "
+          f"ends with qa and qc, rc={rc} {second}: {err}")
+    want_cum = cumulative_matches(str(work / "fleet_ref"))
+    check(want_cum["hits"] and cumulative_matches(str(d)) == want_cum,
+          "phase 15c: the fleet's record after kill -9 mid-churn ≡ the "
+          "uninterrupted run")
+    out["kill9"] = {"launches": launches, "restart": second,
+                    "hits": len(want_cum["hits"])}
+    out["seconds"] = time.perf_counter() - t_start
+    emit(out)
+    return out
+
+
+def phase_fleets(seed: int) -> tuple:
+    """Phase 15: 15a-d (15c in a scratch directory of the checkout's
+    build/ tree, removed afterwards)."""
+    a = phase_fleet(seed)
+    b = phase_fleet_arena(seed)
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "build"))
+    try:
+        c = phase_fleet_service(seed, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    d = phase_fleet_bits16(seed)
+    return a, b, c, d
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3059,6 +3622,9 @@ def main() -> None:
                         help=argparse.SUPPRESS)
     parser.add_argument("--crash-after", type=int, default=-1,
                         help=argparse.SUPPRESS)
+    # phase 15c's subprocess: one fleet crash-recovery run over a directory
+    parser.add_argument("--fleet-worker", metavar="DIR",
+                        help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not (ROOT / "src" / "repro_torch").is_dir():
         sys.exit("chip_smoke.py runs from a checkout of the repository: "
@@ -3068,10 +3634,11 @@ def main() -> None:
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if args.crash_worker or args.service_worker:
-        run = crash_run if args.crash_worker else service_kill_run
-        emit(run(args.crash_worker or args.service_worker,
-                 args.crash_after, args.seed))
+    if args.crash_worker or args.service_worker or args.fleet_worker:
+        run = (crash_run if args.crash_worker else fleet_kill_run
+               if args.fleet_worker else service_kill_run)
+        emit(run(args.crash_worker or args.service_worker
+                 or args.fleet_worker, args.crash_after, args.seed))
         return
 
     t_main = time.perf_counter()
@@ -3102,16 +3669,20 @@ def main() -> None:
     part_res, part_arena = phase("13a partitioned", phase_part, seed)
     exact_res = phase("13b partitioned exactness", phase_part_exact, seed)
     svc_res, kill_res = phase("14 service, recovery", phase_runtime, seed)
+    fleet_res, fleet_arena, _, bits16 = phase("15 fleet", phase_fleets, seed)
     emit({"phase_seconds": spans,
           "total_s": time.perf_counter() - t_main})
     unf = unf_res["kernels"]
+    fleet15_err = max(v["max_abs_err"] for v in
+                      list(fleet_res["kernels"].values())
+                      + [bits16["kernel"]])
     emit({"kernels": [{
         "name": "fused_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_scan.cu",
         "replaces": "src/repro/kernels/fused_scan.py:215",
         "launches": main_res["launches"],
-        "max_abs_err": main_res["max_abs_err"],
-        "max_abs_diff": main_res["max_abs_err"],
+        "max_abs_err": max(main_res["max_abs_err"], fleet15_err),
+        "max_abs_diff": max(main_res["max_abs_err"], fleet15_err),
         "ms": main_res["kernel_ms_per_chunk"],
         "plain_ms": main_res["plain_ms_per_chunk"],
         "bound_ms": main_res["bound_ms"],
@@ -3124,14 +3695,21 @@ def main() -> None:
         "phase13_ms": part_res["fused_scan_ms"],
         "phase13_bound_ms": part_res["fused_scan_bound_ms"],
         "phase13_n_split": part_res["fused_scan_n_split"],
-        "phase14_launches": svc_res["launches"]["fused_scan"]}, {
+        "phase14_launches": svc_res["launches"]["fused_scan"],
+        "phase15_launches": fleet_res["launches"]["fused_scan"],
+        "phase15_buckets": {k: {x: v[x] for x in (
+            "S", "NQ", "k", "state_bucket", "n_split", "kernel_ms",
+            "plain_ms", "bound_ms", "bound_by")}
+            for k, v in list(fleet_res["kernels"].items())
+            + [("bits16", bits16["kernel"])]}}, {
         "name": "arena_update", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/arena_update.cu",
         "replaces": "src/repro/kernels/arena_update.py:88",
         "launches": enum_res["launches"]["arena_update"],
         "max_abs_err": max(enum_res["max_abs_err"],
                            wide_res["max_abs_err"],
-                           part_arena["max_abs_err"]),
+                           part_arena["max_abs_err"],
+                           fleet_arena["max_abs_err"]),
         "ms": enum_res["kernel_ms_per_chunk"],
         "plain_ms": enum_res["plain_ms_per_chunk"],
         "bound_ms": enum_res["bound_ms"],
@@ -3145,7 +3723,8 @@ def main() -> None:
         "phase13_ms": part_arena["store_kernel_ms"],
         "phase13_bound_ms": part_arena["store_bound_ms"],
         "phase13_launches": part_arena["launches"]["arena_update"],
-        "phase14_launches": kill_res["launches"]["arena_update"]}, {
+        "phase14_launches": kill_res["launches"]["arena_update"],
+        "phase15_launches": fleet_arena["launches"]["arena_update"]}, {
         "name": "bitvector", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bitvector.cu",
         "replaces": "src/repro/kernels/bitvector.py:45",

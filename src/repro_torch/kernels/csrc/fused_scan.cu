@@ -63,7 +63,9 @@
 
 namespace {
 
-constexpr int kMaxBits = 14;    // predicates per query (2^14 class_of rows)
+// predicates per call (2^16 class_of rows): a query compiles to at most
+// 14, and a fleet bucket pads 13 or 14 live ones to 16 dead-padded
+constexpr int kMaxBits = 16;
 constexpr int kMaxThreads = 256;
 constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kTile = 256;      // events whose classes are tabled at once

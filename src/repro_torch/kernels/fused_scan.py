@@ -26,7 +26,9 @@ import torch
 
 from .build import LIBRARY
 
-MAX_BITS = 14       # predicates per query
+# predicates per call: a query compiles to at most 14 (symbolic.MAX_BITS);
+# a fleet bucket pads 13 or 14 live ones to 16, the padding never true
+MAX_BITS = 16
 MAX_THREADS = 256
 # det-state template instantiations: rows in registers up to 32 states, the
 # wide build (csrc/scan_row.cuh) up to the reference's MAX_DET_STATES

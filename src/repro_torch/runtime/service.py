@@ -293,6 +293,7 @@ class _PartitionedAdapter:
     """
 
     feed_method = "feed_keyed"
+    supports_regrow = True
 
     def __init__(self, engine):
         self.engine = engine
@@ -342,6 +343,7 @@ class _SingleStreamAdapter:
     """StreamingVectorEngine at batch=1: one raw stream, ``feed_attrs``."""
 
     feed_method = "feed_attrs"
+    supports_regrow = True
 
     def __init__(self, engine, pad_event: Optional[Event] = None):
         if engine.batch != 1:
@@ -376,19 +378,43 @@ class _SingleStreamAdapter:
         return self._pad
 
 
+class _FleetAdapter:
+    """QueryFleet at batch=1: the fleet encodes internally (its packing
+    changes under churn), so 'encode' just shapes the stream; regrow is
+    unsupported — run fleets with ``overflow_policy='raise'``."""
+
+    feed_method = "feed"
+    supports_regrow = False
+
+    def __init__(self, engine):
+        if engine.batch != 1:
+            raise ValueError(
+                f"StreamService feeds ONE raw stream; this fleet has "
+                f"batch={engine.batch}")
+        self.engine = engine
+        self.chunk_len = engine.chunk_len
+
+    def encode(self, events: List[Event]):
+        return ([list(events)],), {}
+
+    def pad_event(self) -> Event:
+        raise ValueError("drain(pad=True) is unsupported for QueryFleet — "
+                         "pass a full final chunk or drop the tail")
+
+
 def _make_adapter(engine, pad_event: Optional[Event] = None):
     # late imports: runtime.service must not import the vector stack at
     # module load (runtime/__init__ is imported by host-only tooling)
     from ..vector.partitioned import PartitionedStreamingEngine
     from ..vector.streaming import StreamingVectorEngine
+    from .fleet import QueryFleet
     if isinstance(engine, PartitionedStreamingEngine):
         return _PartitionedAdapter(engine)
     if isinstance(engine, StreamingVectorEngine):
         return _SingleStreamAdapter(engine, pad_event)
-    raise TypeError(
-        f"no StreamService adapter for {type(engine).__name__}: the service "
-        "takes a PartitionedStreamingEngine or a StreamingVectorEngine "
-        "(batch=1); QueryFleet is not ported to this package yet")
+    if isinstance(engine, QueryFleet):
+        return _FleetAdapter(engine)
+    raise TypeError(f"no StreamService adapter for {type(engine).__name__}")
 
 
 # ----------------------------------------------------------------------
@@ -440,8 +466,8 @@ class StreamService:
     Parameters
     ----------
     engine:
-        A ``StreamingVectorEngine`` (batch=1) or a
-        ``PartitionedStreamingEngine``.  The service owns it exclusively.
+        A ``StreamingVectorEngine`` (batch=1), ``PartitionedStreamingEngine``
+        or ``QueryFleet`` (batch=1).  The service owns it exclusively.
     directory:
         Recovery root: checkpoints + matches.log (the runner's), plus
         ``dead_letter.jsonl``, ``alerts.cursor`` and ``service_state.json``.
@@ -498,12 +524,14 @@ class StreamService:
                 f"chunk_len={self.chunk_len} does not match the engine's "
                 f"compiled chunk_len={self.adapter.chunk_len}")
         self.overflow_policy = overflow_policy
-        if overflow_policy == "regrow" and engine.window.is_time and \
-                not engine.strict_overflow:
-            raise ValueError(
-                "overflow_policy='regrow' needs strict_overflow=True on the "
-                "engine: the ovf latch must raise WindowOverflowError for "
-                "the service to catch and heal")
+        if overflow_policy == "regrow":
+            if not self.adapter.supports_regrow:
+                self.overflow_policy = "raise"
+            elif engine.window.is_time and not engine.strict_overflow:
+                raise ValueError(
+                    "overflow_policy='regrow' needs strict_overflow=True "
+                    "on the engine: the ovf latch must raise "
+                    "WindowOverflowError for the service to catch and heal")
         self.directory = directory
         os.makedirs(directory, exist_ok=True)
         self.validator = validator if validator is not None \
@@ -535,7 +563,9 @@ class StreamService:
         self._raw_q: "queue.Queue" = queue.Queue()
         self._enc_q: "queue.Queue" = queue.Queue(maxsize=int(pipeline_depth))
         self._closed = False
-        self._mwe = int(engine.window.ring)   # current rate bound (the ring)
+        w = getattr(engine, "window", None)     # QueryFleet has no window
+        self._mwe = int(w.ring) if w is not None else 0
+        # current rate bound (the padded ring)
         self._resume()
         self._enc_thread = threading.Thread(
             target=self._encode_loop, name="svc-encode", daemon=True)
@@ -580,14 +610,19 @@ class StreamService:
             if meta.get("quarantined_lanes") or mid_heal:
                 target = max(target, ring * self.growth_factor)
             kw = {}
-            if _pad8(target) > self.engine.window.ring:
+            if self.adapter.supports_regrow and \
+                    _pad8(target) > self.engine.window.ring:
                 kw["max_window_events"] = target
             self.runner.resume(**kw)
-            if self.engine.quarantined_lanes:
+            # QueryFleet has no quarantine surface (supports_regrow=False)
+            if self.adapter.supports_regrow and \
+                    getattr(self.engine, "quarantined_lanes", ()):
                 self.engine.clear_quarantine()   # ring is regrown: healed
-        elif _pad8(max(target, 1)) > self.engine.window.ring:
+        elif self.adapter.supports_regrow and \
+                _pad8(max(target, 1)) > self.engine.window.ring:
             self.engine.regrow(target)
-        self._mwe = int(self.engine.window.ring)
+        if self.adapter.supports_regrow:
+            self._mwe = int(self.engine.window.ring)
         # Producer contract after a restart: resubmit the stream FROM THE
         # BEGINNING (at-least-once ingestion).  Chunk numbering therefore
         # restarts at 0 — chunks the restored checkpoint already contains

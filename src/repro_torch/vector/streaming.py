@@ -269,7 +269,7 @@ class StreamingVectorEngine:
         self.arena_impl = tecs_arena.check_arena_impl(
             arena_impl if arena_impl is not None
             else getattr(engine, "arena_impl", "block"))
-        self._arena_tables = (engine.arena_tables()
+        self._arena_tables = (self._build_arena_tables()
                               if arena_capacity is not None else None)
         self._roots: Dict[Tuple[int, int], np.ndarray] = {}
         # host mirror of the node store: enumeration fetches only the delta
@@ -279,6 +279,10 @@ class StreamingVectorEngine:
         # lanes parked mid-overflow-heal (quarantine)
         self._quarantined: Tuple[int, ...] = ()
         self._state = self._init_full_state(self.batch)
+
+    def _build_arena_tables(self) -> tecs_arena.ArenaTables:
+        """The arena's predecessor tables (the engine's own)."""
+        return self.engine.arena_tables()
 
     def _init_full_state(self, batch: int):
         """Fresh device state for ``batch`` lanes."""
@@ -586,30 +590,13 @@ class StreamingVectorEngine:
             raise ValueError("event_ts was passed but the query window is "
                              "count-based")
         t0 = self._pos
-        kw = dict(window=self.window, event_ts=event_ts,
-                  impl=self.impl, latest_q=self._latest_q,
-                  consume_sq=self._consume_sq, inplace=True)
-        roots = None
-        if self.arena_capacity is None:
-            counts_f, _ = ops.cer_pipeline(
-                attrs, self._specs, self._class_of, self._class_ind,
-                self._m_all, self._finals_q, self._state,
-                init_mask=self._init_mask, start_pos=self._pos % self._ring,
-                **kw)
-        else:
-            if self._pos + T > _I32_MAX:
-                raise ValueError(
-                    f"arena node labels are int32 stream positions; "
-                    f"position {self._pos + T} exceeds {_I32_MAX}.  reset() "
-                    "the engine (its arena would long since have "
-                    "overflowed its capacity anyway)")
-            counts_f, _, _, roots = tecs_arena.scan_chunk(
-                self._arena_tables, self._state["arena"], attrs,
-                self._state["C"], specs=self._specs,
-                class_of=self._class_of, class_ind=self._class_ind,
-                m_all=self._m_all, finals_q=self._finals_q,
-                init_mask=self._init_mask, start=self._pos % self._ring,
-                gbase=self._pos, arena_impl=self.arena_impl, **kw)
+        if self.arena_capacity is not None and self._pos + T > _I32_MAX:
+            raise ValueError(
+                f"arena node labels are int32 stream positions; position "
+                f"{self._pos + T} exceeds {_I32_MAX}.  reset() the engine "
+                "(its arena would long since have overflowed its capacity "
+                "anyway)")
+        counts_f, roots = self._device_step(attrs, event_ts)
         self._pos += T
         if self._single_query:
             counts_f = counts_f[:, :, 0]
@@ -623,6 +610,30 @@ class StreamingVectorEngine:
                 self._roots[(p, b)] = roots_np[p - t0, b]
         self._check_overflow()
         return counts, hits
+
+    def _device_step(self, attrs: torch.Tensor, event_ts
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """One chunk through the pipeline (and the arena) at the current
+        position, the state updated in place: ``(counts (T, B, Q) f32,
+        roots (T, B, Q) int32 or None)``."""
+        kw = dict(window=self.window, event_ts=event_ts,
+                  impl=self.impl, latest_q=self._latest_q,
+                  consume_sq=self._consume_sq, inplace=True)
+        if self.arena_capacity is None:
+            counts_f, _ = ops.cer_pipeline(
+                attrs, self._specs, self._class_of, self._class_ind,
+                self._m_all, self._finals_q, self._state,
+                init_mask=self._init_mask, start_pos=self._pos % self._ring,
+                **kw)
+            return counts_f, None
+        counts_f, _, _, roots = tecs_arena.scan_chunk(
+            self._arena_tables, self._state["arena"], attrs,
+            self._state["C"], specs=self._specs,
+            class_of=self._class_of, class_ind=self._class_ind,
+            m_all=self._m_all, finals_q=self._finals_q,
+            init_mask=self._init_mask, start=self._pos % self._ring,
+            gbase=self._pos, arena_impl=self.arena_impl, **kw)
+        return counts_f, roots
 
     def _check_overflow(self) -> None:
         if not self.strict_overflow:

@@ -1291,3 +1291,124 @@ def test_service_on_cuda_engine_matches_cpu_engine(dev, tmp_path):
     assert gpu[2]["chunks"] == 12 and gpu[2]["rejected"] == 3
     assert gpu[5] == [12, 12] and cpu[5] == [0, 0]
     assert gpu[0]
+
+
+# ---------------------------------------------------------------------------
+# QueryFleet on the card ≡ the same fleet on the CPU
+# ---------------------------------------------------------------------------
+
+FLEET_W1 = ("SELECT * FROM S WHERE (E AS a; E AS b; E AS c; E AS d) FILTER "
+            "a[x > 1] AND a[y < 8] AND b[x > 3] AND b[z < 6] AND c[u > 2] "
+            "AND c[v < 7] AND d[x < 5] AND d[y > 4] WITHIN 8 events")
+FLEET_W2 = ("SELECT * FROM S WHERE (E AS a; E AS b) FILTER a[z > 6] AND "
+            "a[u < 3] AND b[v > 5] AND b[y > 2] AND a[x = 4] WITHIN 8 events")
+FLEET_PAIR = ("SELECT * FROM S WHERE (E AS a; E AS b) FILTER a[x > 6] AND "
+              "b[x < 3] WITHIN {}")
+FIG8_TYPES = ["A1", "A2", "A3"] + [f"B{i}" for i in range(1, 7)]
+FIG8_FLEET = ["SELECT * FROM S WHERE " + s + " WITHIN 40 events" for s in
+              ("A1 ; A2 ; A3", "B1 ; B2 ; B3", "B4 ; B5 ; B6",
+               "A1 ; B5 ; A3", "A2 ; B1 ; A3")]
+# (fleet kwargs, event types, attributes, missing share, operations):
+# ("add", text, qid) | ("remove", qid) | ("feed", chunk index)
+FLEET_SCRIPTS = {
+    "churn": ({}, ("E",), ("x", "y"), 0.0, [
+        ("add", FLEET_PAIR.format("8 events"), "a"),
+        ("add", FLEET_PAIR.format("4 events"), "c"), ("feed", 0),
+        ("add", FLEET_PAIR.format("8 seconds"), "t"), ("feed", 1),
+        ("add", FLEET_PAIR.replace("x", "y").format("8 events"), "b"),
+        ("feed", 2), ("remove", "b"), ("feed", 3), ("remove", "c"),
+        ("add", FLEET_PAIR.replace("x", "y").format("8 events"), "b2"),
+        ("feed", 4)]),
+    "churn_arena": (dict(arena_capacity=1 << 12), ("E",), ("x", "y"), 0.0, [
+        ("add", FLEET_PAIR.format("8 events"), "a"),
+        ("add", FLEET_PAIR.replace("x", "y").format("8 events"), "b"),
+        ("feed", 0), ("feed", 1), ("remove", "b"), ("feed", 2),
+        ("add", FLEET_PAIR.replace("x", "y").format("8 events"), "b2"),
+        ("feed", 3)]),
+    "bits16": ({}, ("E",), ("x", "y", "z", "u", "v"), 0.1, [
+        ("add", FLEET_W1, "w1"), ("feed", 0), ("add", FLEET_W2, "w2"),
+        ("feed", 1), ("feed", 2), ("remove", "w1"), ("feed", 3)]),
+    "state_bucket_32_to_64": ({}, FIG8_TYPES, (), 0.0, [
+        *[("add", q, f"f{i}") for i, q in enumerate(FIG8_FLEET[:4])],
+        ("feed", 0), ("add", FIG8_FLEET[4], "f4"), ("feed", 1),
+        ("feed", 2), ("remove", "f4"), ("feed", 3)]),
+    "attr_slots": ({}, ("E", "F"), ("x", "y", "z", "u", "v"), 0.3, [
+        ("add", FLEET_PAIR.replace("b[x", "b[v").format("8 events"), "p"),
+        ("feed", 0),
+        ("add", "SELECT * FROM S WHERE (E AS a; F AS b) FILTER a[u > 6] "
+         "AND b[z < 3] AND b[y > 1] WITHIN 8 events", "q"),
+        ("feed", 1), ("feed", 2)]),
+}
+
+
+def fleet_chunks(seed, n, T, B, types, attrs, missing):
+    from repro_torch.core.events import Event
+    rng = np.random.default_rng(seed)
+    return [[[Event(str(types[int(rng.integers(0, len(types)))]),
+                    {a: float(rng.integers(0, 10)) for a in attrs
+                     if rng.random() >= missing},
+                    timestamp=float(c * T + t))
+              for t in range(T)] for _ in range(B)] for c in range(n)]
+
+
+def run_fleet_script(device, name, T=32, B=4):
+    """One fleet through a script; every observable after every op, the
+    fused and store launches per feed, and the final snapshot."""
+    import json
+    from repro_torch.runtime import QueryFleet
+    kw, types, attrs, missing, ops_ = FLEET_SCRIPTS[name]
+    chunks = fleet_chunks(7, 5, T, B, types, attrs, missing)
+    fleet = QueryFleet(chunk_len=T, batch=B, device=device, **kw)
+    rec, launches = [], []
+    for op in ops_:
+        if op[0] == "add":
+            fleet.add_query(op[1], qid=op[2])
+        elif op[0] == "remove":
+            fleet.remove_query(op[1])
+        else:
+            n0 = (fused_scan.KERNEL.launches, arena_update.KERNEL.launches)
+            counts, hits = fleet.feed(chunks[op[1]])
+            launches.append((fused_scan.KERNEL.launches - n0[0],
+                             arena_update.KERNEL.launches - n0[1],
+                             fleet.num_buckets))
+            rec.append((counts, hits))
+        rec.append((fleet.live_qids, fleet.compile_count,
+                    fleet.distinct_geometries, fleet.cache_hits,
+                    fleet.cost_report(), json.dumps(fleet.manifest())))
+    return fleet, rec, launches, fleet.snapshot()["arrays"]
+
+
+@pytest.mark.parametrize("name", list(FLEET_SCRIPTS))
+def test_fleet_on_card_matches_cpu_fleet(dev, name):
+    """Counts, hits, cache counters, cost reports, manifests and snapshot
+    leaves of a fleet on the card equal the CPU fleet's after every op; one
+    fused launch per bucket per feed (and one store launch with the
+    arena); padded bits, attributes, states and query slots stay dead."""
+    from repro_torch.kernels.build import LIBRARY
+    gpu, rec_g, launches, snap_g = run_fleet_script(None, name)
+    cpu, rec_c, _, snap_c = run_fleet_script("cpu", name)
+    assert gpu.device.type == "cuda"
+    assert len(rec_g) == len(rec_c)
+    for a, b in zip(rec_g, rec_c):
+        if isinstance(a[0], np.ndarray):
+            assert np.array_equal(a[0], b[0]) and a[1] == b[1]
+        else:
+            assert a == b
+    assert sorted(snap_g) == sorted(snap_c)
+    for k in snap_g:
+        assert np.array_equal(snap_g[k], snap_c[k]), k
+    arena = "arena_capacity" in FLEET_SCRIPTS[name][0]
+    assert all(f == n and s == (n if arena else 0)
+               for f, s, n in launches), launches
+    assert LIBRARY.loads == 1
+    # the padded geometries the script went through (cost reports)
+    geos = {r["geometry"] for a in rec_g if not isinstance(a[0], np.ndarray)
+            for r in a[4].values()}
+    if name == "bits16":
+        assert any(g[3] == 16 for g in geos)          # 14 live bits
+    if name == "state_bucket_32_to_64":
+        assert {g[0] for g in geos} == {8, 16, 32, 64}
+        assert gpu._find_bucket("f0").engine._entry.state_bucket == 32
+    if name == "attr_slots":
+        assert {g[4] for g in geos} == {4, 8}         # 2-3, then 6 columns
+    assert any(a[0].any() for a in rec_g if isinstance(a[0], np.ndarray))

@@ -297,7 +297,7 @@ def test_contract_errors():
 
 
 @pytest.mark.parametrize("limit,kw", [
-    ("predicates", dict(k=15)), ("queries", dict(NQ=-1)),
+    ("predicates", dict(k=17)), ("queries", dict(NQ=-1)),
     ("queries", dict(NQ=0)), ("det states", dict(S=513)),
     ("epsilon", dict(W=8, epsilon=8))])
 def test_kernel_refuses_shapes_before_launch(limit, kw):

@@ -1,5 +1,6 @@
 """The port's ``StreamService`` against the reference package's, on the CPU
-route: the sweeps of ``tests/test_service.py`` (all but the fleet's).
+route: the sweeps of ``tests/test_service.py`` (the fleet's is in
+``tests/test_torch_fleet.py``).
 
 The same raw dict events, made from seeds, go through ``repro``'s service
 over ``repro``'s engine and the port's over the port's.  Tolerance 0:
@@ -31,8 +32,9 @@ from repro.vector import VectorEngine as JVector
 from repro_torch.core.events import Event as TEvent
 from repro_torch.kernels.window import WindowOverflowError
 from repro_torch.runtime import (DeadLetterQueue, EventValidator,
-                                 RetryPolicy, StreamService, TokenBucket,
-                                 cumulative_matches, run_with_retries)
+                                 QueryFleet, RetryPolicy, StreamService,
+                                 TokenBucket, cumulative_matches,
+                                 run_with_retries)
 from repro_torch.runtime.recovery import DEFAULT_STEP_POLICY
 from repro_torch.vector import PartitionedStreamingEngine as TPart
 from repro_torch.vector import StreamingVectorEngine as TStream
@@ -634,8 +636,11 @@ def test_service_refuses_batches_and_other_engines(tmp_path):
     with pytest.raises(ValueError, match="ONE raw stream"):
         StreamService(single_engine("port", batch=2), str(tmp_path / "b2"))
     for other in (object(), part_engine("repro", 16)):
-        with pytest.raises(TypeError, match="QueryFleet is not ported"):
+        with pytest.raises(TypeError, match="no StreamService adapter"):
             StreamService(other, str(tmp_path / "other"))
+    with pytest.raises(ValueError, match="ONE raw stream"):
+        StreamService(QueryFleet(chunk_len=8, batch=2, device="cpu"),
+                      str(tmp_path / "fleet2"))
     with pytest.raises(ValueError, match="strict_overflow"):
         StreamService(TPart(TVector(QT, max_window_events=16, device="cpu"),
                             ("uid",), chunk_len=8, num_lanes=2),
