@@ -138,6 +138,24 @@ started together), then runs these phases, each printing one JSON line:
     an uninterrupted run.  15d: 14 live predicates padded to 16 bits and
     eight attribute columns through the fused kernel ≡ a plain fleet.
 
+16. distribution on an NCCL group of world size 1 (``make_production_mesh``
+    through a file store in a scratch directory under ``build/``).  16a:
+    phase 1's draws through ``sharded_cer_pipeline`` ≡ the unsharded
+    ``ops.cer_pipeline`` (counts and ring; one fused_scan launch a chunk)
+    and phase 8's class ids through ``sharded_cea_scan`` ≡ ``ops.cea_scan``
+    (one cea_scan launch), with their times beside the unsharded calls'.
+    16b: phase 13's draws through ``route_partitioned_chunk`` (one
+    ``all_to_all``) and ``feed_keyed(positions=)`` ≡ phase 13's unsharded
+    feed, fed in turns (counts, hits, state; one lane_route and one
+    fused_scan launch a chunk); the router's ms a chunk (bucket sort and
+    ``all_to_all`` apart), its bytes, the feed's ms and events/s.  16c: a
+    stream whose NULL-keyed events lack the filtered attribute, routed and
+    fed ≡ the host ``PartitionedEngine``.  16d: a checkpoint of 16b's
+    engine restored onto the card by ``restore_resharded`` ≡ the live
+    state.  16e: ``examples/torch_quickstart.py`` and
+    ``examples/torch_multi_query.py`` on the card print what they print
+    with ``--device cpu``, and the dry run runs on the card.
+
 Phase 8 also times ``bitvector`` alone on the device: its launches
 queued behind a spin kernel, so host work leaves no gap between them
 (CUDA events), beside the host time of one wrapper call.
@@ -210,6 +228,8 @@ def same(a, b) -> bool:
     if isinstance(a, tuple):
         return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
     if isinstance(a, torch.Tensor):
+        if a.dtype == b.dtype == torch.uint32:     # compared as their bits
+            a, b = a.view(torch.int32), b.view(torch.int32)
         return a.dtype == b.dtype and torch.equal(a, b)
     return np.array_equal(np.asarray(a), np.asarray(b))
 
@@ -3612,6 +3632,371 @@ def phase_fleets(seed: int) -> tuple:
     return a, b, c, d
 
 
+# phase 16: the sharded engine on an NCCL group of one rank
+DIST_FAULT_QUERY = ("SELECT * FROM S WHERE A AS a ; B AS b "
+                    "FILTER a[price > 5.0] WITHIN 8 events")
+
+
+def dist_sharded_scans(g, seed: int, B: int = 1024, n_chunks: int = 8
+                       ) -> dict:
+    """16a: phase 1's draws through sharded_cer_pipeline on this rank's
+    lanes ≡ the unsharded ops.cer_pipeline; phase 8's class ids through
+    sharded_cea_scan ≡ ops.cea_scan."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.vector import VectorEngine
+    from repro_torch.vector.distributed import (sharded_cea_scan,
+                                                sharded_cer_pipeline)
+    T, eps = 256, 3200
+    types = ["A1", "A2", "A3"] + [f"B{i}" for i in range(1, 7)]
+    ve = VectorEngine(MAIN_QUERY.format(eps))
+    t = ve.tables
+    check(t.latest_q is None and t.consume_sq is None, "phase 1's query "
+          "has neither LAST nor CONSUME")
+    rng = np.random.default_rng(seed)
+    chunks = [type_attrs(ve.encoder, rng, T, B, types, ve.device)
+              for _ in range(n_chunks)]
+    tables = (ve.encoder.specs, t.class_of, t.class_ind, t.m_all,
+              t.finals[None, :])
+    ring_sh = g.block(ve.init_state(B), 0)
+    ring_un = ve.init_state(B)
+
+    def sharded(attrs, ring, i):
+        return sharded_cer_pipeline(
+            g, g.block(attrs, 1), *tables, ring, init_mask=t.init_mask,
+            epsilon=eps, start_pos=torch.tensor(i * T, device=ve.device),
+            inplace=True)
+
+    def unsharded(attrs, ring, i):
+        return ops.cer_pipeline(attrs, *tables, ring, init_mask=t.init_mask,
+                                epsilon=eps, start_pos=i * T, impl="fused",
+                                inplace=True)
+    torch.cuda.synchronize()
+    counters = reset_launches()
+    m_sh = [sharded(a, ring_sh, i)[0] for i, a in enumerate(chunks)]
+    launches = read_launches(counters)
+    want = {k: 0 for k in launches}
+    want.update(fused_scan=n_chunks)
+    check(launches == want, f"16a: sharded_cer_pipeline launched "
+          f"{launches}, expected one fused_scan launch per chunk")
+    m_un = [unsharded(a, ring_un, i)[0] for i, a in enumerate(chunks)]
+    check(all(same(x, y) for x, y in zip(m_sh, m_un)) and
+          same(ring_sh, ring_un), "16a: sharded_cer_pipeline ≡ the "
+          "unsharded ops.cer_pipeline (counts and ring)")
+    err = max(max(max_abs_err(x, y) for x, y in zip(m_sh, m_un)),
+              max_abs_err(ring_sh, ring_un))
+    check(torch.cat(m_sh).max().item() < EXACT_LIMIT, "counts stay below "
+          "2^24")
+    matches = int(torch.cat(m_sh).sum().item())
+    del m_sh, m_un
+    # chunk time from the final ring, sharded and unsharded in turns
+    st_a, st_b = ring_sh.clone(), ring_un.clone()
+    turns = {"unsharded": [], "sharded": []}
+    for _ in range(2):
+        turns["unsharded"].append(cuda_ms(
+            lambda: unsharded(chunks[0], st_b, n_chunks), reps=5))
+        turns["sharded"].append(cuda_ms(
+            lambda: sharded(chunks[0], st_a, n_chunks), reps=5))
+    del st_a, st_b
+
+    # phase 8's class ids through the single-query scan kernel
+    flat = chunks[0].reshape(T * B, chunks[0].shape[2])
+    ids = t.class_of[ref.bitvector(flat, ve.encoder.specs).long()].reshape(
+        T, B)
+    start = n_chunks * T
+    counters = reset_launches()
+    got = sharded_cea_scan(g, g.block(ids, 1), t.m_all, t.finals,
+                           g.block(ring_sh, 0).clone(), epsilon=eps,
+                           start_pos=torch.tensor(start, device=ve.device))
+    scan_launches = read_launches(counters)
+    want = {k: 0 for k in scan_launches}
+    want.update(cea_scan=1)
+    check(scan_launches == want, f"16a: sharded_cea_scan launched "
+          f"{scan_launches}, expected one cea_scan launch")
+    plain = ops.cea_scan(ids, t.m_all, t.finals, ring_sh.clone(),
+                         epsilon=eps, start_pos=start)
+    check(same(got[0], plain[0]) and same(got[1], plain[1]),
+          "16a: sharded_cea_scan ≡ ops.cea_scan (counts and ring)")
+    err = max(err, max_abs_err(got[0], plain[0]),
+              max_abs_err(got[1], plain[1]))
+    del got, plain
+    st_a, st_b = ring_sh.clone(), ring_sh.clone()
+    scan_ms = cuda_ms(lambda: sharded_cea_scan(
+        g, ids, t.m_all, t.finals, st_a, epsilon=eps, start_pos=start),
+        reps=5)
+    scan_un_ms = cuda_ms(lambda: ops.cea_scan(
+        ids, t.m_all, t.finals, st_b, epsilon=eps, start_pos=start,
+        inplace=True), reps=5)
+    return {"case": "16a sharded scans", "B": B, "T": T,
+            "chunks": n_chunks, "W": ve.ring, "launches": launches,
+            "cea_scan_launches": scan_launches, "matches": matches,
+            "sharded_pipeline_ms": turns["sharded"],
+            "unsharded_pipeline_ms": turns["unsharded"],
+            "sharded_cea_scan_ms": scan_ms,
+            "unsharded_cea_scan_ms": scan_un_ms, "max_abs_err": err}
+
+
+def dist_routed_feed(g, seed: int, L: int = 1024, T: int = 262144,
+                     cap: int = 384, n_chunks: int = 8):
+    """16b: phase 13's draws through route_partitioned_chunk and
+    feed_keyed(positions=) ≡ phase 13's unsharded feed, fed in turns."""
+    from repro_torch.kernels import ref
+    from repro_torch.vector.distributed import (bucket_rows, exchange_rows,
+                                                pack_rows,
+                                                route_partitioned_chunk)
+    eps = 3200
+    query = MAIN_QUERY.format(eps)
+    kidx, types, keys = part_draws(seed + 30, L, T, n_chunks)
+    routed_eng = part_engine(query, T, L, cap)
+    plain_eng = part_engine(query, T, L, cap)
+    dev = routed_eng.device
+    codes = torch.tensor([routed_eng.encoder.vocab["type"].get(x, -1.0)
+                          for x in PART_TYPES], device=dev)
+    chunks = [codes[torch.from_numpy(types[i]).to(dev)][:, None].contiguous()
+              for i in range(n_chunks)]
+    keys_dev = [ref.key_bits(torch.from_numpy(k)).to(dev).view(torch.uint32)
+                for k in keys]
+    got = np.zeros(n_chunks * T, np.int64)
+    want, hits_r, hits_u = [], [], []
+    launches, route_s, feed_s, plain_s = None, [], [], []
+    for i in range(n_chunks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c, h = plain_eng.feed_keyed(chunks[i], keys[i])
+        plain_s.append(time.perf_counter() - t0)
+        want.append(c)
+        hits_u += h
+        counters = reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pos = torch.arange(i * T, (i + 1) * T, dtype=torch.int32,
+                           device=dev)
+        a2, k2, p2, valid, keep = route_partitioned_chunk(
+            g, g.block(chunks[i]), g.block(keys_dev[i]), g.block(pos))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        p2_np = p2.cpu().numpy()
+        c, h = routed_eng.feed_keyed(a2, k2, positions=p2_np)
+        feed_s.append(time.perf_counter() - t1)
+        route_s.append(t1 - t0)
+        v = valid.cpu().numpy()
+        got[p2_np[v]] = c[v]
+        hits_r += h
+        step = read_launches(counters)
+        launches = step if launches is None else {
+            k: launches[k] + step[k] for k in step}
+        check(bool(keep.cpu().numpy().sum() == v.sum()) and
+              int(v.sum()) == int((kidx[i] >= 0).sum()), "16b: every "
+              "keyed event arrives (no spill on one rank)")
+    want_l = {k: 0 for k in launches}
+    want_l.update(lane_route=n_chunks, fused_scan=n_chunks)
+    check(launches == want_l, f"16b: the routed feed launched {launches}, "
+          "expected one lane_route and one fused_scan launch per chunk")
+    check(same(got, np.concatenate(want)) and sorted(hits_r) == hits_u,
+          "16b: routed feed ≡ phase 13's unsharded feed (counts and hits)")
+    check(same(routed_eng.state, plain_eng.state), "16b: routed engine's "
+          "state ≡ the unsharded engine's")
+    # the router alone on chunk 0: bucket sort, then the all_to_all
+    a, k, pos = chunks[0], keys_dev[0], torch.arange(T, dtype=torch.int32,
+                                                     device=dev)
+    bits = ref.key_bits(k)
+    null = bits == -1
+    dest = ((bits.to(torch.int64) & 0xFFFFFFFF) % g.world_size).to(
+        torch.int32)
+    cols = torch.cat([a.view(torch.int32), torch.stack(
+        [bits, pos, torch.ones_like(bits)], 1)], 1)
+
+    def bucket():
+        slot, _ = bucket_rows(dest, null, g.world_size)
+        return pack_rows(cols, slot, g.world_size)
+    send = bucket()
+    bucket_ms = cuda_ms(bucket, reps=20)
+    a2a_ms = cuda_ms(lambda: exchange_rows(g, send), reps=20)
+    route_ms = cuda_ms(lambda: route_partitioned_chunk(g, a, k, pos),
+                       reps=20)
+    route_med = float(np.median(route_s))
+    feed_med, plain_med = float(np.median(feed_s)), float(np.median(plain_s))
+    res = {"case": "16b routed feed", "lanes": L, "T": T, "lane_cap": cap,
+           "chunks": n_chunks, "launches": launches,
+           "matches": int(got.sum()), "hits": len(hits_r),
+           "router_ms_per_chunk": route_ms,
+           "router_bucket_sort_ms": bucket_ms,
+           "router_all_to_all_ms": a2a_ms,
+           "all_to_all_bytes": send.numel() * 4,
+           "router_host_ms_median": 1e3 * route_med,
+           "routed_feed_ms_median": 1e3 * feed_med,
+           "routed_feed_ms": [1e3 * x for x in feed_s],
+           "routed_events_per_s": T / (route_med + feed_med),
+           "unsharded_feed_ms_median": 1e3 * plain_med,
+           "unsharded_feed_ms": [1e3 * x for x in plain_s],
+           "unsharded_events_per_s": T / plain_med}
+    del plain_eng
+    return res, routed_eng
+
+
+def dist_fault_case(g) -> dict:
+    """16c: NULL-keyed events without the filtered attribute (NaN rows
+    dropped by the router): route and feed on the card ≡ the host
+    PartitionedEngine."""
+    import random
+
+    from repro_torch.core import compile_query
+    from repro_torch.core.engine import Engine, WindowSpec
+    from repro_torch.core.events import Event
+    from repro_torch.core.partition import NULL_KEY_HASH, PartitionedEngine
+    from repro_torch.vector import PartitionedStreamingEngine, VectorEngine
+    from repro_torch.vector.distributed import route_partitioned_chunk
+    rng = random.Random(6)
+    stream = []
+    for _ in range(64):
+        attrs = {} if rng.random() < 0.25 else \
+            {"uid": rng.choice(["u1", "u2", "u3"]),
+             "price": float(rng.randint(0, 10))}
+        stream.append(Event(rng.choice("AB"), attrs))
+    q = compile_query(DIST_FAULT_QUERY)
+    host = PartitionedEngine(
+        lambda: Engine(q.cea, window=WindowSpec.events(8)), ("uid",))
+    want = [len(host.process(e)) for e in stream]
+    ve = VectorEngine(DIST_FAULT_QUERY)
+    eng = PartitionedStreamingEngine(ve, ("uid",), chunk_len=16,
+                                     num_lanes=8)
+    got = np.zeros(len(stream), np.int64)
+    nan_dropped = 0
+    for lo in range(0, len(stream), 16):
+        attrs, keys = ve.encoder.encode_stream_with_keys(
+            stream[lo:lo + 16], ("uid",))
+        nan_dropped += int(np.isnan(
+            attrs[keys == np.uint32(NULL_KEY_HASH)]).any(axis=1).sum())
+        pos = torch.arange(lo, lo + 16, dtype=torch.int32, device=ve.device)
+        a2, k2, p2, valid, _ = route_partitioned_chunk(
+            g, torch.from_numpy(attrs).to(ve.device), keys, pos)
+        p2 = p2.cpu().numpy()
+        c, _ = eng.feed_keyed(a2, k2, positions=p2)
+        v = valid.cpu().numpy()
+        got[p2[v]] = c[v]
+    check(nan_dropped > 0, "16c: dropped rows carry NaN")
+    check(got.tolist() == want and sum(want) > 0, f"16c: route and feed on "
+          f"the card ({int(got.sum())} matches) ≡ the host "
+          f"PartitionedEngine ({sum(want)})")
+    return {"case": "16c NaN rows dropped by the router", "events": 64,
+            "matches": int(got.sum()), "nan_rows_dropped": nan_dropped}
+
+
+def dist_restore(g, eng, work: Path) -> dict:
+    """16d: a checkpoint of 16b's engine state, restored onto the card by
+    restore_resharded (lane-indexed leaves as this rank's block) ≡ the
+    live state, leaf for leaf."""
+    from repro_torch.checkpoint import (CheckpointManager, LaneShard,
+                                        restore_resharded)
+    state = eng.state
+    mgr = CheckpointManager(str(work / "ckpt"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(1, state, extra={"position": eng.position})
+    t1 = time.perf_counter()
+    shard = LaneShard(g, 0)
+    placed, extra = restore_resharded(mgr, state,
+                                      {k: shard for k in state})
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for k in state:
+        check(placed[k].device == g.device and
+              same(placed[k], g.block(state[k], 0)),
+              f"16d: restored leaf {k} ≡ the live state's block")
+    check(extra == {"position": eng.position}, "16d: extra restored")
+    nbytes = sum(v.numel() * v.element_size() for v in state.values())
+    return {"case": "16d restore_resharded", "leaves": sorted(state),
+            "bytes": nbytes, "save_ms": 1e3 * (t1 - t0),
+            "restore_ms": 1e3 * (t2 - t1)}
+
+
+def dist_examples() -> dict:
+    """16e: both examples on the card and with --device cpu, and the dry
+    run on the card, as subprocesses at once; each example prints the
+    same lines on both."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = {}
+    for name in ("torch_quickstart", "torch_multi_query"):
+        for dev in ("cuda", "cpu"):
+            args = [] if dev == "cuda" else ["--device", "cpu"]
+            runs[(name, dev)] = [sys.executable,
+                                 str(ROOT / "examples" / f"{name}.py")] + args
+    runs[("cer_dryrun", "cuda")] = [sys.executable, "-m",
+                                    "repro_torch.launch.cer_dryrun"]
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(cmd, env=env, cwd=ROOT, text=True,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE)
+             for k, cmd in runs.items()}
+    out, secs = {}, {}
+    try:
+        for k, p in procs.items():
+            o, e = p.communicate(timeout=300)
+            secs["/".join(k)] = time.perf_counter() - t0
+            check(p.returncode == 0, f"16e: {' '.join(k)} exited "
+                  f"{p.returncode}: {e[-2000:]}")
+            out[k] = o
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for name in ("torch_quickstart", "torch_multi_query"):
+        check(out[(name, "cuda")] == out[(name, "cpu")] and
+              out[(name, "cuda")].strip(), f"16e: {name} prints the same "
+              f"lines on the card and the CPU")
+    dry = out[("cer_dryrun", "cuda")].splitlines()
+    check(len(dry) == 2 and all("cuda:0" in ln or "all_to_all" in ln
+                                for ln in dry), f"16e: dry run: {dry}")
+    return {"case": "16e examples and dry run",
+            "quickstart": out[("torch_quickstart", "cuda")].splitlines(),
+            "multi_query": out[("torch_multi_query", "cuda")].splitlines(),
+            "dryrun": dry, "seconds": secs}
+
+
+def phase_distributed(seed: int, part_res: dict, smi: str) -> dict:
+    """Phase 16: the sharded engine on an NCCL group of world size 1
+    (file store in a scratch directory of build/, removed afterwards)."""
+    from datetime import timedelta
+
+    from repro_torch.launch.mesh import make_production_mesh
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_",
+                                 dir=ROOT / "build"))
+    try:
+        g = make_production_mesh(str(work / "store"),
+                                 timeout=timedelta(seconds=300))
+        try:
+            check(g.world_size == 1 and g.backend == "nccl" and
+                  g.device == torch.device("cuda", 0), f"16: an NCCL group "
+                  f"of one rank on cuda:0, got {g}")
+            t0 = time.perf_counter()
+            a = dist_sharded_scans(g, seed)
+            t1 = time.perf_counter()
+            b, eng = dist_routed_feed(g, seed)
+            t2 = time.perf_counter()
+            c = dist_fault_case(g)
+            d = dist_restore(g, eng, work)
+            del eng
+            torch.cuda.empty_cache()
+            t3 = time.perf_counter()
+        finally:
+            g.close()
+        e = dist_examples()
+        t4 = time.perf_counter()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    b["phase13_feed_ms_per_chunk_median"] = part_res[
+        "feed_ms_per_chunk_median"]
+    result = {"phase": 16, "case": "distributed, world size 1",
+              "nvidia_smi": smi, "backend": "nccl", "world_size": 1,
+              "sharded_scans": a, "routed_feed": b, "nan_rows": c,
+              "restore": d, "examples": e,
+              "seconds": {"16a": t1 - t0, "16b": t2 - t1, "16c_d": t3 - t2,
+                          "16e": t4 - t3}}
+    emit(result)
+    return result
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3652,7 +4037,7 @@ def main() -> None:
         return out
 
     seed = args.seed
-    _, launch_floor_ms = phase("0 build, card", phase_card)
+    smi, launch_floor_ms = phase("0 build, card", phase_card)
     main_res, main_run = phase("1 main", phase_main, seed)
     phase("2 host", phase_host, seed)
     phase("3 time windows", phase_time, seed)
@@ -3670,6 +4055,9 @@ def main() -> None:
     exact_res = phase("13b partitioned exactness", phase_part_exact, seed)
     svc_res, kill_res = phase("14 service, recovery", phase_runtime, seed)
     fleet_res, fleet_arena, _, bits16 = phase("15 fleet", phase_fleets, seed)
+    dist_res = phase("16 distributed", phase_distributed, seed, part_res,
+                     smi)
+    dist_a, dist_b = dist_res["sharded_scans"], dist_res["routed_feed"]
     emit({"phase_seconds": spans,
           "total_s": time.perf_counter() - t_main})
     unf = unf_res["kernels"]
@@ -3697,6 +4085,10 @@ def main() -> None:
         "phase13_n_split": part_res["fused_scan_n_split"],
         "phase14_launches": svc_res["launches"]["fused_scan"],
         "phase15_launches": fleet_res["launches"]["fused_scan"],
+        "phase16_launches": dist_a["launches"]["fused_scan"]
+        + dist_b["launches"]["fused_scan"],
+        "phase16_sharded_ms": dist_a["sharded_pipeline_ms"],
+        "phase16_unsharded_ms": dist_a["unsharded_pipeline_ms"],
         "phase15_buckets": {k: {x: v[x] for x in (
             "S", "NQ", "k", "state_bucket", "n_split", "kernel_ms",
             "plain_ms", "bound_ms", "bound_by")}
@@ -3746,7 +4138,10 @@ def main() -> None:
         "plain_ms": unf["cea_scan"]["plain_ms"],
         "bound_ms": unf["cea_scan"]["bound_ms"],
         "bound_by": unf["cea_scan"]["bound_by"],
-        "library_ms": None}, {
+        "library_ms": None,
+        "phase16_launches": dist_a["cea_scan_launches"]["cea_scan"],
+        "phase16_sharded_ms": dist_a["sharded_cea_scan_ms"],
+        "phase16_unsharded_ms": dist_a["unsharded_cea_scan_ms"]}, {
         "name": "cea_scan_multi", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/cea_scan.cu",
         "replaces": "src/repro/kernels/cea_scan.py:283",
@@ -3775,7 +4170,8 @@ def main() -> None:
         "chunk1_ms": part_res["lane_route_ms_chunk1"],
         "chunk1_plain_ms": part_res["lane_route_plain_ms_chunk1"],
         "phase13b_checks": exact_res["router_checks"],
-        "phase14_launches": svc_res["launches"]["lane_route"]}]})
+        "phase14_launches": svc_res["launches"]["lane_route"],
+        "phase16_launches": dist_b["launches"]["lane_route"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

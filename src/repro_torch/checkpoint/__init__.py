@@ -1,4 +1,5 @@
-"""Atomic, async checkpoints in the reference package's on-disk layout."""
-from .manager import CheckpointManager
+"""Atomic, async checkpoints in the reference package's on-disk layout,
+and their restore onto another group of ranks."""
+from .manager import CheckpointManager, LaneShard, restore_resharded
 
-__all__ = ["CheckpointManager"]
+__all__ = ["CheckpointManager", "LaneShard", "restore_resharded"]

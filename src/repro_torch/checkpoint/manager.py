@@ -24,6 +24,7 @@ import json
 import os
 import shutil
 import threading
+from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -187,3 +188,52 @@ class CheckpointManager:
             restored.append(arr.astype(_dtype(tmpl)) if hasattr(tmpl, "dtype")
                             else arr)
         return _unflatten(template, restored), extra
+
+
+@dataclass(frozen=True)
+class LaneShard:
+    """A placement: this rank's block of axis ``axis`` on the group's
+    device (``group`` a :class:`repro_torch.launch.mesh.StreamGroup`)."""
+
+    group: Any
+    axis: int = 0
+
+
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype == np.uint32:
+        return torch.from_numpy(arr.view(np.int32)).view(torch.uint32)
+    return torch.from_numpy(arr)
+
+
+def _place(arr: np.ndarray, placement) -> torch.Tensor:
+    if isinstance(placement, LaneShard):
+        block = placement.group.block(_tensor(arr), placement.axis)
+        return block.contiguous().to(placement.group.device)
+    if isinstance(placement, (str, torch.device)):
+        return _tensor(arr).to(torch.device(placement))
+    raise TypeError(f"a placement is a torch.device or a LaneShard, got "
+                    f"{placement!r}")
+
+
+def restore_resharded(manager: CheckpointManager, template: Any,
+                      placements: Any, step: Optional[int] = None
+                      ) -> Tuple[Any, Dict]:
+    """Restore a checkpoint and place every leaf by ``placements`` (an
+    elastic restart onto another group: the checkpoint stores global
+    arrays, and each rank keeps the part its placement names).
+
+    ``placements`` has ``template``'s structure; a leaf is a
+    ``torch.device`` (or its name), which puts the whole array there, or a
+    :class:`LaneShard`, which keeps this rank's block of one axis on the
+    group's device.  Returns ``(tree of tensors, extra)``.
+    """
+    tree, extra = manager.restore(template, step)
+    leaves = _flatten_with_paths(tree)
+    where = _flatten_with_paths(placements)
+    if [k for k, _ in leaves] != [k for k, _ in where]:
+        raise ValueError(f"placements name the leaves "
+                         f"{[k for k, _ in where]}, the template "
+                         f"{[k for k, _ in leaves]}")
+    return _unflatten(tree, [_place(arr, p) for (_, arr), (_, p)
+                             in zip(leaves, where)]), extra

@@ -1,0 +1,136 @@
+"""Process groups of the sharded stream engine on ``torch.distributed``.
+
+The counterpart of the reference package's mesh module.  JAX is
+single-controller: one program splits a global array over a ``Mesh``.
+PyTorch is SPMD: every rank is a process that holds its own block.  Rank
+``r`` of ``n`` holds rows ``[r·N/n, (r+1)·N/n)`` of the sharded axis (the
+lanes of a scan, the events of a router chunk), which is the block layout
+of the reference's ``PartitionSpec(axes)``; gathering the ranks' outputs in
+rank order gives the reference's global array element for element
+(:meth:`StreamGroup.block`, :meth:`StreamGroup.gather`).
+
+The reference's production meshes (a 16×16 TPU pod, two pods joined over
+the data-centre network) do not carry over.  A group here is flat: one
+rank per GPU of the job, NCCL between the GPUs, or gloo on the CPU.
+
+Groups are initialised through a ``file://`` store at a path the caller
+gives (a path that does not exist yet, on a file system every rank
+sees), so concurrent jobs on one host never race for a TCP port, and
+always with an explicit timeout, so a rank that never arrives fails the
+others instead of hanging them.
+"""
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from datetime import timedelta
+from typing import List, Optional
+
+import torch
+import torch.distributed as dist
+
+DEFAULT_TIMEOUT = timedelta(seconds=120)
+
+
+@dataclass
+class StreamGroup:
+    """One rank's view of the group: its rank, the world size, the device
+    its blocks live on, the backend and the process group."""
+
+    rank: int
+    world_size: int
+    device: torch.device
+    backend: str
+    group: dist.ProcessGroup
+
+    def block(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's block of ``x``'s axis ``dim`` (whose length the
+        world size must divide): rows ``[r·N/n, (r+1)·N/n)``."""
+        N = x.shape[dim]
+        if N % self.world_size:
+            raise ValueError(f"axis {dim} of length {N} does not split into "
+                             f"{self.world_size} equal blocks")
+        n = N // self.world_size
+        return x.narrow(dim, self.rank * n, n)
+
+    def gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Every rank's block of one axis, concatenated in rank order (a
+        collective: every rank calls it with a block of the same shape).
+        Returns the global tensor on this rank's device."""
+        dtype = x.dtype
+        # bool and uint32 travel as bytes and int32 bits (gloo takes
+        # neither)
+        if dtype == torch.bool:
+            x = x.to(torch.uint8)
+        elif dtype == torch.uint32:
+            x = x.view(torch.int32)
+        x = x.to(self.device).contiguous()
+        parts: List[torch.Tensor] = [torch.empty_like(x)
+                                     for _ in range(self.world_size)]
+        dist.all_gather(parts, x, group=self.group)
+        out = torch.cat(parts, dim)
+        if dtype == torch.bool:
+            return out.bool()
+        return out.view(torch.uint32) if dtype == torch.uint32 else out
+
+    def close(self) -> None:
+        """Destroy the process group (every rank calls it)."""
+        dist.destroy_process_group(self.group)
+
+
+def init_stream_group(store: str, *, rank: int, world_size: int,
+                      backend: str, device,
+                      timeout: timedelta = DEFAULT_TIMEOUT) -> StreamGroup:
+    """Join a group of ``world_size`` ranks as ``rank`` through the file
+    store at ``store`` (absolute or relative path; every rank gives the
+    same one), with collectives on ``backend`` (``"nccl"`` or ``"gloo"``)
+    and blocks on ``device``."""
+    if not 0 <= rank < world_size:
+        raise ValueError(f"rank {rank} outside a world of {world_size}")
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if backend == "nccl":
+        if device.type != "cuda":
+            raise ValueError(f"NCCL groups place blocks on a CUDA device, "
+                             f"got {device}")
+        torch.cuda.set_device(device)
+    dist.init_process_group(
+        backend, init_method="file://" + os.path.abspath(store), rank=rank,
+        world_size=world_size, timeout=timeout)
+    return StreamGroup(rank, world_size, device, backend,
+                       dist.group.WORLD)
+
+
+def make_host_mesh(store: str, *,
+                   timeout: timedelta = DEFAULT_TIMEOUT) -> StreamGroup:
+    """A group of one rank on the CPU (gloo), for tests."""
+    return init_stream_group(store, rank=0, world_size=1, backend="gloo",
+                             device="cpu", timeout=timeout)
+
+
+def make_production_mesh(store: str, *, device: Optional[str] = None,
+                         timeout: timedelta = DEFAULT_TIMEOUT
+                         ) -> StreamGroup:
+    """The job's group: rank, world size and local rank from the
+    variables ``torchrun`` sets (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``;
+    without them, a group of one).  Blocks live on ``cuda:LOCAL_RANK``
+    with NCCL, which raises ``RuntimeError`` without a CUDA device, or on
+    the CPU with gloo when ``device="cpu"``."""
+    env = os.environ
+    rank = int(env.get("RANK", 0))
+    world = int(env.get("WORLD_SIZE", 1))
+    local = int(env.get("LOCAL_RANK", 0))
+    if device is not None and torch.device(device).type == "cpu":
+        return init_stream_group(store, rank=rank, world_size=world,
+                                 backend="gloo", device="cpu",
+                                 timeout=timeout)
+    if device is not None and torch.device(device).type != "cuda":
+        raise ValueError(f"groups run on CUDA or the CPU, got {device}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("make_production_mesh runs on CUDA and no CUDA "
+                           "device is available; pass device='cpu' for the "
+                           "CPU")
+    return init_stream_group(store, rank=rank, world_size=world,
+                             backend="nccl", device=f"cuda:{local}",
+                             timeout=timeout)

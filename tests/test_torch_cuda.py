@@ -1412,3 +1412,120 @@ def test_fleet_on_card_matches_cpu_fleet(dev, name):
     if name == "attr_slots":
         assert {g[4] for g in geos} == {4, 8}         # 2-3, then 6 columns
     assert any(a[0].any() for a in rec_g if isinstance(a[0], np.ndarray))
+
+
+# ---------------------------------------------------------------------------
+# distribution: an NCCL group of one rank (repro_torch.vector.distributed)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def nccl_group(dev, tmp_path):
+    from repro_torch.launch.mesh import make_production_mesh
+    g = make_production_mesh(str(tmp_path / "store"))
+    yield g
+    g.close()
+
+
+def test_nccl_world_one_group_routes_kept_rows(nccl_group):
+    """make_production_mesh without torchrun's variables: NCCL, one rank on
+    cuda:0.  The router's one all_to_all on the card gives the closed form
+    of one rank (kept rows in order, then zero rows), NaN in a dropped row
+    touching no kept row; block and gather are the identity."""
+    from repro_torch.vector.distributed import route_by_partition
+    g = nccl_group
+    assert (g.rank, g.world_size, g.backend) == (0, 1, "nccl")
+    assert g.device == torch.device("cuda", 0)
+    ev = np.array([[1, 2], [np.nan, 5], [3, 4], [6, 7]], np.float32)
+    drop = np.array([False, True, False, False])
+    payload = np.arange(8, dtype=np.int32).reshape(4, 2)
+    routed, pl, keep = route_by_partition(
+        g, torch.from_numpy(ev).cuda(), torch.tensor([3, 1, 4, 1]).cuda(),
+        payload=torch.from_numpy(payload).cuda(),
+        drop=torch.from_numpy(drop).cuda())
+    assert np.array_equal(routed.cpu().numpy(), np.concatenate(
+        [ev[~drop], np.zeros((1, 2), np.float32)]))
+    assert np.array_equal(pl.cpu().numpy(), np.concatenate(
+        [payload[~drop], np.zeros((1, 2), np.int32)]))
+    assert keep.cpu().numpy().tolist() == (~drop).tolist()
+    x = torch.arange(12, device="cuda", dtype=torch.int32)
+    assert torch.equal(g.gather(g.block(x)), x)
+
+
+def test_sharded_pipeline_on_card_matches_unsharded(nccl_group):
+    """sharded_cer_pipeline and sharded_cea_scan on an NCCL group of one
+    rank ≡ the unsharded ops calls on the card ≡ the plain versions; one
+    fused_scan and one cea_scan launch."""
+    from repro_torch.vector.distributed import (sharded_cea_scan,
+                                                sharded_cer_pipeline)
+    g = nccl_group
+    rng = np.random.default_rng(21)
+    specs, class_of, M, finals, init = random_tables(rng, 9, 8, 3, 3, 2)
+    T, B, eps = 64, 16, 40
+    W = eps + 1
+    attrs = rng.normal(size=(T, B, 3)).astype(np.float32)
+    ind = ops.class_indicator(class_of, 8)
+    c = lambda x: torch.from_numpy(np.asarray(x)).cuda()
+    args = (c(attrs), specs, c(class_of), ind.cuda(), c(M), c(finals))
+    kw = dict(init_mask=c(init), epsilon=eps, start_pos=5)
+    n0 = fused_scan.KERNEL.launches
+    m_s, r_s = sharded_cer_pipeline(g, *args, torch.zeros(
+        (B, W, 9), device="cuda"), **kw)
+    assert fused_scan.KERNEL.launches == n0 + 1
+    m_u, r_u = ops.cer_pipeline(*args, torch.zeros((B, W, 9),
+                                                   device="cuda"), **kw)
+    cpu = [torch.from_numpy(np.asarray(x)) for x in
+           (attrs, class_of, M, finals, init)]
+    m_p, r_p = ops.cer_pipeline(cpu[0], specs, cpu[1], ind, cpu[2], cpu[3],
+                                torch.zeros((B, W, 9)), init_mask=cpu[4],
+                                epsilon=eps, start_pos=5)
+    assert equal(m_s, m_u) and equal(r_s, r_u)
+    assert equal(m_s.cpu(), m_p) and equal(r_s.cpu(), r_p)
+    ids = rng.integers(0, 8, (T, B)).astype(np.int32)
+    n0 = cea_scan.SINGLE.launches
+    s_m, s_r = sharded_cea_scan(g, c(ids), c(M), c(finals[0]), r_u.clone(),
+                                epsilon=eps, start_pos=T)
+    assert cea_scan.SINGLE.launches == n0 + 1
+    p_m, p_r = ops.cea_scan(torch.from_numpy(ids), cpu[2], cpu[3][0],
+                            r_u.cpu(), epsilon=eps, start_pos=T)
+    assert equal(s_m.cpu(), p_m) and equal(s_r.cpu(), p_r)
+
+
+def test_routed_feed_on_card_matches_cpu_feed(nccl_group):
+    """route_partitioned_chunk then feed_keyed(positions=) on the card ≡
+    an unsharded CPU feed of the same chunks (counts at global positions,
+    hits), with NULL keys and NULL attributes; one lane_route and one
+    fused_scan launch a chunk."""
+    from repro_torch.core.events import Event
+    from repro_torch.vector import PartitionedStreamingEngine
+    from repro_torch.vector.distributed import route_partitioned_chunk
+    g = nccl_group
+    query = ("SELECT * FROM S WHERE A AS a ; B AS b "
+             "FILTER a[price > 5.0] WITHIN 8 events")
+    rng = random.Random(6)
+    stream = [Event(rng.choice("AB"), {} if rng.random() < 0.25 else
+                    {"uid": rng.choice(["u1", "u2", "u3"]),
+                     "price": float(rng.randint(0, 10))})
+              for _ in range(64)]
+    card = PartitionedStreamingEngine(VectorEngine(query), ("uid",),
+                                      chunk_len=16, num_lanes=8)
+    plain = PartitionedStreamingEngine(VectorEngine(query, device="cpu"),
+                                       ("uid",), chunk_len=16, num_lanes=8)
+    got, want, hits = np.zeros(64, np.int64), [], []
+    n0 = (lane_route.KERNEL.launches, fused_scan.KERNEL.launches)
+    for lo in range(0, 64, 16):
+        attrs, keys = card.encoder.encode_stream_with_keys(
+            stream[lo:lo + 16], ("uid",))
+        c, _ = plain.feed_keyed(attrs, keys)
+        want.append(c)
+        a2, k2, p2, valid, _ = route_partitioned_chunk(
+            g, torch.from_numpy(attrs).cuda(), keys,
+            torch.arange(lo, lo + 16, dtype=torch.int32, device="cuda"))
+        p2, v = p2.cpu().numpy(), valid.cpu().numpy()
+        c, h = card.feed_keyed(a2, k2, positions=p2)
+        got[p2[v]] = c[v]
+        hits += h
+    assert (lane_route.KERNEL.launches - n0[0],
+            fused_scan.KERNEL.launches - n0[1]) == (4, 4)
+    want = np.concatenate(want)
+    assert np.array_equal(got, want) and want.sum() > 0
+    assert sorted(hits) == np.nonzero(want)[0].tolist()
