@@ -156,12 +156,40 @@ started together), then runs these phases, each printing one JSON line:
     ``examples/torch_multi_query.py`` on the card print what they print
     with ``--device cpu``, and the dry run runs on the card.
 
+17. the LM serve path (``repro_torch.launch.serve``'s functions; scratch
+    directories under ``build/``).  17a: Qwen2.5-14B at its published
+    width (48 layers, d_model 5120, 40 heads, 8 KV heads, head_dim 128,
+    d_ff 13824, vocab 152064, bf16; 29.5 GB of weights drawn on the card
+    from the seed), 4 lanes, an 8-token prompt, 32 greedy decode steps,
+    twice (the first keeps the logits for the checks, the second is
+    timed): every logit finite, and decode ≡ ``forward_train`` over the 40
+    tokens within bf16's rounding (max |Δ| ≤ √(16·layers)·2⁻⁸·max |logit|:
+    16 bf16 roundings a layer, independent errors growing as the square
+    root of their count); prefill ms, decode ms a step (median and spread,
+    host clock around a synchronize), tokens/s, the step's bound (weights
+    but the embedding, the KV cache and the logits, at 3.35 TB/s) and its
+    share, peak memory, and 4 steps under ``torch.profiler`` (kernels a
+    step, the device's busy time, its idle share).  Then a 4-layer cut of
+    the same widths in float32 (10.6 GB), where decode ≡ teacher forcing
+    at ``tests/test_archs.py``'s 5e-4.  17b: the guard (``PARTITION BY
+    [lane]``) over 17a's 128 token events through the launcher's
+    ``--service`` path on the card (one lane_route and one fused_scan
+    launch a chunk) ≡ the same service on the CPU ≡ the host
+    ``PartitionedEngine``, per position, exactly; both kernels ≡ plain on
+    one more chunk, with times and bounds at the guard's shape, and the
+    guard's step ms.  17c: ``examples/torch_serve_monitored.py --service``
+    and ``python -m repro_torch.launch.serve --arch qwen2.5-14b --smoke
+    --service`` on the card exit 0 (the example's asserts hold the card's
+    service to the host baseline and its heal to a service sized large
+    from the start).
+
 Phase 8 also times ``bitvector`` alone on the device: its launches
 queued behind a spin kernel, so host work leaves no gap between them
 (CUDA events), beside the host time of one wrapper call.
 
 Then the kernels line and, last, ``{"ok": true, "device": {...}}``.  Every
-comparison of kernel and plain version is exact (tolerance 0): counts are
+comparison of kernel and plain version is exact (tolerance 0; phase 17a's
+model is no kernel and has the tolerances stated there): counts are
 f32 integers, exact below 2^24 in any order of summation, and the script
 checks that every count stays below 2^24; the arena's records, roots and
 stores are int32 node ids.  Any failure raises, so the exit
@@ -173,6 +201,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import math
 import os
 import shutil
 import signal
@@ -2186,6 +2215,38 @@ def part_fused(eng, ops_, state, impl="fused", trace=False):
         return_trace=trace, inplace=True)
 
 
+def part_fused_bound(eng, ops_):
+    """Least seconds of the fused kernel on one partitioned chunk, by bytes
+    and by operations: the sparse f32 arithmetic the live steps' classes
+    need (non-zeros of M_all[class] and of the finals, per ring slot), and
+    the ring in and out, the lanes' attributes and positions and the
+    tables read once.  Also returns the (cap, L) mask of live steps."""
+    from repro_torch.kernels import ref
+    tab = eng.engine.tables
+    cap, L, A = ops_["attrs"].shape
+    dev = ops_["attrs"].device
+    W, S = eng.window.ring, tab.num_states
+    idx = torch.tensor([s[0] for s in eng.encoder.specs], device=dev)
+    opc = torch.tensor([s[1] for s in eng.encoder.specs], device=dev)
+    thr = torch.tensor([s[2] for s in eng.encoder.specs], device=dev)
+    cls = ref.class_trace_ref(ops_["attrs"], idx, opc, thr, tab.class_of)
+    live = torch.arange(cap, device=dev)[:, None] < ops_["fill"][None, :]
+    nnz_m = (tab.m_all != 0).sum(dim=(1, 2))
+    flops = 2 * W * (int(nnz_m[cls.long()][live].sum())
+                     + int(live.sum()) * int((tab.finals != 0).sum()))
+    nbytes = 4 * (2 * L * W * S + cap * L * A + cap * L + 2 * L
+                  + tab.m_all.numel() + tab.class_of.numel() + 2 * S)
+    return nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOP_PER_S, live
+
+
+def route_bound(T: int, L: int):
+    """Least seconds of the lane router on T keys and L lanes, by bytes
+    (keys in; lanes, ranks and flags out; the lane tables in and out) and
+    by operations (16 a key); and the bytes."""
+    r_bytes = T * (4 + 4 + 4 + 1) + L * (2 * 4 + 3 * 4 + 1)
+    return r_bytes / PEAK_BYTES_PER_S, 16 * T / PEAK_F32_FLOP_PER_S, r_bytes
+
+
 def phase_part(seed: int, L: int = 1024, T: int = 262144, cap: int = 384,
                n_chunks: int = 8) -> dict:
     """PARTITION BY at phase 1's width: 1024 lanes, chunks of 262 144
@@ -2250,9 +2311,7 @@ def phase_part(seed: int, L: int = 1024, T: int = 262144, cap: int = 384,
         router[name] = {"ms": cuda_ms(call, reps=20),
                         "plain_ms": 1e3 * s_plain,
                         "max_abs_err": route_err(got, plain)}
-    r_bytes = T * (4 + 4 + 4 + 1) + L * (2 * 4 + 3 * 4 + 1)
-    r_ops = 16 * T
-    r_tb, r_to = r_bytes / PEAK_BYTES_PER_S, r_ops / PEAK_F32_FLOP_PER_S
+    r_tb, r_to, r_bytes = route_bound(T, L)
 
     # the fused kernel alone on one more chunk: ≡ plain, time and bound
     ops_ = part_step_operands(eng, chunks[0], keys_dev)
@@ -2268,19 +2327,8 @@ def phase_part(seed: int, L: int = 1024, T: int = 262144, cap: int = 384,
     fused_plain_ms = cuda_ms(lambda: part_fused(eng, ops_, st_t, "ref"),
                              reps=1)
     del st_t
-    tab = eng.engine.tables
-    W, S, A = eng.window.ring, tab.num_states, 1
-    idx = torch.tensor([s[0] for s in eng.encoder.specs], device=dev)
-    opc = torch.tensor([s[1] for s in eng.encoder.specs], device=dev)
-    thr = torch.tensor([s[2] for s in eng.encoder.specs], device=dev)
-    cls = ref.class_trace_ref(ops_["attrs"], idx, opc, thr, tab.class_of)
-    live = torch.arange(cap, device=dev)[:, None] < ops_["fill"][None, :]
-    nnz_m = (tab.m_all != 0).sum(dim=(1, 2))
-    flops = 2 * W * (int(nnz_m[cls.long()][live].sum())
-                     + int(live.sum()) * int((tab.finals != 0).sum()))
-    nbytes = 4 * (2 * L * W * S + cap * L * A + cap * L + 2 * L
-                  + tab.m_all.numel() + tab.class_of.numel() + 2 * S)
-    f_tb, f_to = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOP_PER_S
+    f_tb, f_to, live = part_fused_bound(eng, ops_)
+    W, S = eng.window.ring, eng.engine.tables.num_states
 
     # where one feed's time goes: the device step, then the host side
     (counts_f, _, _, stats_t), s_step = host_clock(
@@ -3997,6 +4045,412 @@ def phase_distributed(seed: int, part_res: dict, smi: str) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the LM serve path — Qwen2.5-14B at its published width on the
+# card, and the CEQL guard over its token stream
+# ---------------------------------------------------------------------------
+
+SERVE_ARCH = "qwen2.5-14b"
+SERVE_LANES, SERVE_PROMPT, SERVE_TOKENS = 4, 8, 32
+# NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak
+PEAK_BF16_FLOP_PER_S = 989e12
+BF16_UNIT = 2.0 ** -8       # bf16 keeps 8 significand bits
+# bf16 roundings a layer on the path from input to output: the two norms,
+# the q/k/v and output projections, RoPE, the scores and probabilities, the
+# AV product, the MLP's three projections and product, the residual adds
+BF16_ROUNDINGS_PER_LAYER = 16
+F32_DECODE_TOL = 5e-4       # tests/test_archs.py: decode ≡ teacher forcing
+
+
+def decode_bound(model, cfg, lanes: int, index: int):
+    """Least seconds of one decode step at position ``index`` for
+    ``lanes`` lanes, by bytes and by operations: every weight but the
+    embedding read once (the embedding is a gather of ``lanes`` rows), the
+    KV cache read up to ``index`` and its new entries written, the logits
+    written; two operations a weight per lane, plus the attention's.
+    Returns (seconds by bytes, seconds by operations, bytes)."""
+    emb = model.embed["embedding"]
+    weights = [p for n, p in model.named_parameters()
+               if n != "embed.embedding"]
+    w_bytes = sum(p.numel() * p.element_size() for p in weights)
+    w_matmul = sum(p.numel() for p in weights if p.ndim == 2)
+    act = cfg.activation_dtype.itemsize
+    L, kv, hd, h = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, \
+        cfg.num_heads
+    cache = 2 * L * lanes * (index + 1) * kv * hd * act
+    nbytes = (w_bytes + lanes * cfg.d_model * emb.element_size() + cache
+              + lanes * cfg.padded_vocab * act + 8 * lanes)
+    flops = 2 * lanes * w_matmul + 4 * L * lanes * h * hd * (index + 1)
+    return nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOP_PER_S, nbytes
+
+
+def teacher_forcing_err(model, cfg, run) -> dict:
+    """The decode's logits (prefill, then each step) against
+    ``forward_train`` over the same 40 tokens, on the card."""
+    from repro_torch.models import forward_train
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = forward_train(model, cfg, {"tokens": run.fed})[0]
+    torch.cuda.synchronize()
+    tf_s = time.perf_counter() - t0
+    dec = torch.cat([run.prefill_logits, torch.stack(run.step_logits, 1)],
+                    dim=1)
+    check(tuple(full.shape) == tuple(dec.shape) == (
+        SERVE_LANES, SERVE_PROMPT + SERVE_TOKENS, cfg.padded_vocab),
+        f"17a: logits of shape {tuple(dec.shape)}")
+    check(bool(torch.isfinite(dec).all() and torch.isfinite(full).all()),
+          "17a: every logit is finite")
+    full, dec = full.float(), dec.float()
+    diff = dec - full
+    top2 = full.topk(2, dim=-1).values
+    return {"max_abs_err": float(diff.abs().max()),
+            "logit_max_abs": float(full.abs().max()),
+            "logit_rms": float(full.square().mean().sqrt()),
+            "rel_rms_err": float(diff.norm() / full.norm()),
+            "argmax_agree": float((dec.argmax(-1) == full.argmax(-1))
+                                  .float().mean()),
+            "min_top2_margin": float((top2[..., 0] - top2[..., 1]).min()),
+            "teacher_forcing_ms": 1e3 * tf_s}
+
+
+def decode_profile(model, cfg, prompt, steps: int = 4) -> dict:
+    """Decode steps under ``torch.profiler`` after one warm step: kernels
+    a step, the device's busy time (the union of the kernels' intervals)
+    against the host clock, and the idle share.  Without device events in
+    the trace the device numbers read "not measured"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import serve
+    from repro_torch.models import make_serve_step, prefill
+    S0 = prompt.shape[1]
+    logits, caches = prefill(model, cfg, {"tokens": prompt})
+    caches = serve.grow_caches(caches, S0 + steps + 1)
+    step = make_serve_step(cfg)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    logits, caches = step(model, tok, caches, S0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(1, steps + 1):
+            tok = torch.argmax(logits, dim=-1)[:, None]
+            logits, caches = step(model, tok, caches, S0 + t)
+            torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return {"wall_ms_per_step": wall_ms, "kernels_per_step": 0,
+                "device_busy_ms_per_step": "not measured",
+                "idle_share": "not measured"}
+    busy, end = 0.0, -math.inf
+    for a, b in spans:                       # union of the intervals, µs
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    busy_ms = busy / 1e3 / steps
+    return {"wall_ms_per_step": wall_ms,
+            "kernels_per_step": len(spans) / steps,
+            "device_busy_ms_per_step": busy_ms,
+            "idle_share": 1.0 - busy_ms / wall_ms}
+
+
+def phase_serve_model(seed: int, dev: str = "cuda") -> tuple:
+    """17a: Qwen2.5-14B at its published width, bf16, on the card: init
+    from the seed, prefill of 4 × 8 tokens and 32 greedy decode steps
+    through ``repro_torch.launch.serve``'s functions, decode ≡ teacher
+    forcing within bf16's rounding; then a 4-layer cut of the same widths
+    in float32, where decode ≡ teacher forcing at 5e-4."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem_start = torch.cuda.memory_allocated() / 1e9
+    serve.set_matmul_precision()
+    cfg = get_config(SERVE_ARCH)
+    shape = (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+             cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.param_dtype,
+             cfg.dtype, cfg.qkv_bias)
+    check(shape == (48, 5120, 40, 8, 128, 13824, 152064, "bfloat16",
+                    "bfloat16", True), f"17a: the published shape, {shape}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, _ = init_params(cfg, seed, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    # the matmul weights and embeddings of param_counts, plus the q/k/v
+    # biases and the norms' scales
+    extra = cfg.num_layers * ((cfg.num_heads + 2 * cfg.num_kv_heads)
+                              * cfg.head_dim + 2 * cfg.d_model) + cfg.d_model
+    check(n_params == cfg.param_counts()[0] + extra,
+          f"17a: {n_params} parameters")
+    peak_init = torch.cuda.max_memory_allocated() / 1e9
+
+    prompt = serve.make_prompt(cfg, SERVE_LANES, SERVE_PROMPT, dev,
+                               seed=seed + 1)
+    # run 1 keeps every step's logits for the checks; run 2 is timed
+    checked = serve.generate(model, cfg, prompt, SERVE_TOKENS,
+                             keep_logits=True)
+    tf = teacher_forcing_err(model, cfg, checked)
+    # two orders of summation of the same bf16 computation: independent
+    # rounding errors, one unit of 2^-8 each at most, grow as the square
+    # root of their count, n = 16 a layer
+    tol = (math.sqrt(BF16_ROUNDINGS_PER_LAYER * cfg.num_layers) * BF16_UNIT
+           * tf["logit_max_abs"])
+    check(tf["max_abs_err"] <= tol, f"17a: bf16 decode ≡ teacher forcing: "
+          f"max |Δ| {tf['max_abs_err']} > {tol}")
+    checked.step_logits = None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = serve.generate(model, cfg, prompt, SERVE_TOKENS)
+    peak_run = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = [1e3 * s for s in run.step_s]
+    prof = decode_profile(model, cfg, prompt)
+    med = float(np.median(step_ms))
+    bounds = [decode_bound(model, cfg, SERVE_LANES, SERVE_PROMPT + t)
+              for t in range(SERVE_TOKENS)]
+    b_bytes = float(np.mean([b[0] for b in bounds]))
+    b_ops = float(np.mean([b[1] for b in bounds]))
+    bound_ms = 1e3 * max(b_bytes, b_ops)
+    kv_bytes = (2 * cfg.num_layers * SERVE_LANES
+                * (SERVE_PROMPT + SERVE_TOKENS) * cfg.num_kv_heads
+                * cfg.head_dim * cfg.activation_dtype.itemsize)
+    model_res = {
+        "arch": SERVE_ARCH, "layers": cfg.num_layers,
+        "d_model": cfg.d_model, "heads": cfg.num_heads,
+        "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+        "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+        "lanes": SERVE_LANES, "prompt": SERVE_PROMPT,
+        "tokens": SERVE_TOKENS, "params": n_params,
+        "param_GB": param_bytes / 1e9, "kv_cache_MB": kv_bytes / 1e6,
+        "init_s": init_s, "mem_at_start_GB": mem_start,
+        "peak_mem_GB_init": peak_init, "peak_mem_GB_decode": peak_run,
+        "prefill_ms": 1e3 * run.prefill_s,
+        "prefill_ms_first_run": 1e3 * checked.prefill_s,
+        "decode_ms_per_step_median": med,
+        "decode_ms_per_step": step_ms,
+        "decode_ms_spread": {"min": min(step_ms), "max": max(step_ms),
+                             "p10": float(np.percentile(step_ms, 10)),
+                             "p90": float(np.percentile(step_ms, 90))},
+        "decode_ms_first_run_median": float(np.median(
+            [1e3 * s for s in checked.step_s])),
+        "tokens_per_s": SERVE_LANES / (med / 1e3),
+        "decode_bound_ms": bound_ms,
+        "decode_bound_by": "bytes" if b_bytes >= b_ops else "operations",
+        "decode_bound_GB": float(np.mean([b[2] for b in bounds])) / 1e9,
+        "bound_share": bound_ms / med, "profile": prof,
+        "rerun_tokens_equal": bool(np.array_equal(run.tokens,
+                                                  checked.tokens)),
+        "teacher_forcing": dict(tf, tolerance=tol,
+                                tolerance_rule="sqrt(16 * layers) * 2^-8 "
+                                "* max |logit|")}
+    del model, checked
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same widths, 4 layers, in float32: tells a fault from bf16 noise
+    cut = dataclasses.replace(cfg, num_layers=4, dtype="float32",
+                              param_dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    model, _ = init_params(cut, seed, dev)
+    cut_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    cut_run = serve.generate(model, cut, prompt, SERVE_TOKENS,
+                             keep_logits=True)
+    cut_tf = teacher_forcing_err(model, cut, cut_run)
+    check(cut_tf["max_abs_err"] < F32_DECODE_TOL, f"17a cut: float32 decode "
+          f"≡ teacher forcing: {cut_tf['max_abs_err']} ≥ {F32_DECODE_TOL}")
+    model_res["cut"] = {
+        "case": "the 4-layer cut of the published widths, float32",
+        "layers": 4, "param_GB": cut_bytes / 1e9,
+        "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
+        "decode_ms_per_step_median": float(np.median(
+            [1e3 * s for s in cut_run.step_s])),
+        "teacher_forcing": dict(cut_tf, tolerance=F32_DECODE_TOL)}
+    del model, cut_run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return model_res, run
+
+
+def guard_service(q, device, directory, raws):
+    """The launcher's ``--service`` guard on ``device`` over ``raws``:
+    per-position counts from the emission log, alerts, launches, the
+    device thread's step spans, the engine and the encoded chunks."""
+    from repro_torch.launch import serve
+    alerts = []
+    svc = serve.make_guard_service(q, SERVE_LANES, device, str(directory),
+                                   sinks=[lambda c, h: alerts.extend(h)])
+    spans, encoded, _ = instrument(svc, svc.engine)
+    counters = reset_launches()
+    for r in raws:
+        svc.submit(r, block=True, timeout=120.0)
+    svc.drain(pad=True)
+    launches = read_launches(counters)
+    chunk = svc.engine.chunk_len
+    counts = np.zeros(svc.metrics.chunks * chunk, np.int64)
+    for rec in svc.runner.log.records:
+        for idx, v in rec["counts"]:
+            counts[rec["chunk"] * chunk + idx[0]] = v
+    chunks = svc.metrics.chunks
+    svc.close()
+    return {"counts": counts[:len(raws)], "pad": counts[len(raws):],
+            "alerts": alerts, "launches": launches, "chunks": chunks,
+            "step_ms": ms_list(spans["step"]), "engine": svc.engine,
+            "encoded": encoded}
+
+
+def phase_serve_guard(run, work: Path, dev: str = "cuda") -> dict:
+    """17b: the guard over 17a's 4 × 32 token events: the service on the
+    card (one lane_route and one fused_scan launch a chunk) ≡ the same
+    service on the CPU ≡ the host ``PartitionedEngine``; then both kernels
+    ≡ plain on one more chunk of the guard's engine, with times and
+    bounds at the guard's shape."""
+    from repro_torch.core import Event, compile_query
+    from repro_torch.core.engine import Engine
+    from repro_torch.core.partition import PartitionedEngine
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import serve
+    raws = [{"type": "TOK", "lane": lane, "logp": float(run.logp[lane, t]),
+             "tok": int(run.tokens[lane, t])}
+            for t in range(SERVE_TOKENS) for lane in range(SERVE_LANES)]
+    q = compile_query(serve.DEFAULT_GUARD)
+    pe = PartitionedEngine(lambda: Engine(q.cea, window=q.query.window),
+                           q.query.partition_by)
+    host = np.array([len(pe.process(Event("TOK", {
+        k: v for k, v in r.items() if k != "type"}))) for r in raws])
+    card = guard_service(q, dev, work / "guard_card", raws)
+    cpu = guard_service(q, "cpu", work / "guard_cpu", raws)
+    check(same(card["counts"], host) and same(cpu["counts"], host),
+          "17b: per-position counts of the card's service ≡ the CPU "
+          "service's ≡ the host PartitionedEngine's")
+    check(not card["pad"].any() and not cpu["pad"].any(), "17b: pads inert")
+    check(card["alerts"] == cpu["alerts"] and len(card["alerts"]) == int(
+        (host > 0).sum()), "17b: the same alerts, one a matching position")
+    n = card["chunks"]
+    want = {k: 0 for k in card["launches"]}
+    want.update(lane_route=n, fused_scan=n)
+    check(card["launches"] == want, f"17b launched {card['launches']}, "
+          f"expected one lane_route and one fused_scan a chunk")
+    check(not any(cpu["launches"].values()), "17b: the CPU service "
+          "launches no kernel")
+    check(int(host.max()) < EXACT_LIMIT, "17b: counts below 2^24")
+
+    # both kernels ≡ plain on one more chunk of the card's guard engine
+    eng = card["engine"]
+    (attrs_h, keys_h), _ = card["encoded"][-1]
+    attrs = attrs_h.to(dev)
+    keys_dev = ref.key_bits(keys_h).to(dev)
+    st = eng.state
+
+    def route(impl="fused"):
+        return ops.lane_route(keys_dev, st["lane_keys"], st["lane_last"],
+                              chunk_idx=eng._chunk_idx, cap=eng.lane_cap,
+                              impl=impl)
+    got = route()
+    plain, s_plain = host_clock(lambda: route("ref"))
+    check(route_equal(got, plain), "17b: lane_route kernel ≡ plain")
+    r_tb, r_to, _ = route_bound(eng.chunk_len, eng.num_lanes)
+    ops_ = part_step_operands(eng, attrs, keys_dev)
+    m_k, c_k = part_fused(eng, ops_, clone_state(st["C"]))
+    m_p, c_p = part_fused(eng, ops_, clone_state(st["C"]), "ref")
+    check(same(m_k, m_p) and same(c_k, c_p), "17b: fused_scan ≡ plain")
+    st_t = clone_state(st["C"])
+    f_tb, f_to, _ = part_fused_bound(eng, ops_)
+    return {
+        "events": len(raws), "chunks": n, "chunk_len": eng.chunk_len,
+        "lanes": eng.num_lanes, "matches": int(host.sum()),
+        "alerts": len(card["alerts"]), "launches": card["launches"],
+        "step_ms_median": float(np.median(card["step_ms"])),
+        "step_ms": card["step_ms"],
+        "cpu_step_ms_median": float(np.median(cpu["step_ms"])),
+        "lane_route_ms": cuda_ms(route, reps=20),
+        "lane_route_plain_ms": 1e3 * s_plain,
+        "lane_route_bound_ms": 1e3 * max(r_tb, r_to),
+        "lane_route_bound_by": "bytes" if r_tb >= r_to else "operations",
+        "lane_route_max_abs_err": route_err(got, plain),
+        "fused_scan_ms": cuda_ms(lambda: part_fused(eng, ops_, st_t),
+                                 reps=20),
+        "fused_scan_plain_ms": cuda_ms(
+            lambda: part_fused(eng, ops_, st_t, "ref"), reps=3),
+        "fused_scan_bound_ms": 1e3 * max(f_tb, f_to),
+        "fused_scan_bound_by": "bytes" if f_tb >= f_to else "operations",
+        "fused_scan_max_abs_err": max(max_abs_err(m_k, m_p),
+                                      max_abs_err(c_k, c_p))}
+
+
+def serve_subprocesses(work: Path) -> dict:
+    """17c: the example's --service leg and the launcher's smoke run with
+    --service, on the card, as subprocesses at once."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = {
+        "example": [sys.executable,
+                    str(ROOT / "examples" / "torch_serve_monitored.py"),
+                    "--service"],
+        "launcher": [sys.executable, "-m", "repro_torch.launch.serve",
+                     "--arch", SERVE_ARCH, "--smoke", "--service",
+                     "--service-dir", str(work / "launcher_svc")]}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(cmd, env=env, cwd=ROOT, text=True,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE)
+             for k, cmd in runs.items()}
+    out, secs = {}, {}
+    try:
+        for k, p in procs.items():
+            o, e = p.communicate(timeout=300)
+            secs[k] = time.perf_counter() - t0
+            check(p.returncode == 0, f"17c: {k} exited {p.returncode}: "
+                  f"{e[-2000:]}")
+            out[k] = o.splitlines()
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ex = out["example"]
+    check(len(ex) == 3 and ex[1].startswith("service ≡ host baseline") and
+          "compile_count=1" in ex[1] and
+          ex[2].startswith("overflow self-heal"), f"17c: example: {ex}")
+    la = out["launcher"]
+    check(len(la) == 1 and "guardrail alerts across" in la[0] and
+          "compile_count=1" in la[0], f"17c: launcher: {la}")
+    return {"example": ex, "launcher": la, "seconds": secs}
+
+
+def phase_serve(seed: int, smi: str) -> dict:
+    """Phase 17: the LM serve path (17a model, 17b guard, 17c the example
+    and the launcher), scratch directories under build/."""
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_",
+                                 dir=ROOT / "build"))
+    try:
+        t0 = time.perf_counter()
+        model_res, run = phase_serve_model(seed)
+        t1 = time.perf_counter()
+        guard = phase_serve_guard(run, work)
+        t2 = time.perf_counter()
+        sub = serve_subprocesses(work)
+        t3 = time.perf_counter()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    guard["decode_ms_per_step_median"] = model_res[
+        "decode_ms_per_step_median"]
+    result = {"phase": 17, "case": "the LM serve path: Qwen2.5-14B at its "
+              "published width, bf16, and its token stream's guard",
+              "nvidia_smi": smi, "model": model_res, "guard": guard,
+              "subprocesses": sub,
+              "seconds": {"17a": t1 - t0, "17b": t2 - t1, "17c": t3 - t2}}
+    emit(result)
+    return result
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4058,6 +4512,8 @@ def main() -> None:
     dist_res = phase("16 distributed", phase_distributed, seed, part_res,
                      smi)
     dist_a, dist_b = dist_res["sharded_scans"], dist_res["routed_feed"]
+    serve_res = phase("17 serve", phase_serve, seed, smi)
+    guard17 = serve_res["guard"]
     emit({"phase_seconds": spans,
           "total_s": time.perf_counter() - t_main})
     unf = unf_res["kernels"]
@@ -4069,8 +4525,10 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/fused_scan.cu",
         "replaces": "src/repro/kernels/fused_scan.py:215",
         "launches": main_res["launches"],
-        "max_abs_err": max(main_res["max_abs_err"], fleet15_err),
-        "max_abs_diff": max(main_res["max_abs_err"], fleet15_err),
+        "max_abs_err": max(main_res["max_abs_err"], fleet15_err,
+                           guard17["fused_scan_max_abs_err"]),
+        "max_abs_diff": max(main_res["max_abs_err"], fleet15_err,
+                            guard17["fused_scan_max_abs_err"]),
         "ms": main_res["kernel_ms_per_chunk"],
         "plain_ms": main_res["plain_ms_per_chunk"],
         "bound_ms": main_res["bound_ms"],
@@ -4089,6 +4547,11 @@ def main() -> None:
         + dist_b["launches"]["fused_scan"],
         "phase16_sharded_ms": dist_a["sharded_pipeline_ms"],
         "phase16_unsharded_ms": dist_a["unsharded_pipeline_ms"],
+        "phase17_launches": guard17["launches"]["fused_scan"],
+        "phase17_ms": guard17["fused_scan_ms"],
+        "phase17_plain_ms": guard17["fused_scan_plain_ms"],
+        "phase17_bound_ms": guard17["fused_scan_bound_ms"],
+        "phase17_max_abs_err": guard17["fused_scan_max_abs_err"],
         "phase15_buckets": {k: {x: v[x] for x in (
             "S", "NQ", "k", "state_bucket", "n_split", "kernel_ms",
             "plain_ms", "bound_ms", "bound_by")}
@@ -4161,7 +4624,8 @@ def main() -> None:
                     "not a Pallas kernel)",
         "launches": part_res["launches"]["lane_route"],
         "max_abs_err": max(part_res["lane_route_max_abs_err"],
-                           exact_res["lane_route_max_abs_err"]),
+                           exact_res["lane_route_max_abs_err"],
+                           guard17["lane_route_max_abs_err"]),
         "ms": part_res["lane_route_ms"],
         "plain_ms": part_res["lane_route_plain_ms"],
         "bound_ms": part_res["lane_route_bound_ms"],
@@ -4171,7 +4635,12 @@ def main() -> None:
         "chunk1_plain_ms": part_res["lane_route_plain_ms_chunk1"],
         "phase13b_checks": exact_res["router_checks"],
         "phase14_launches": svc_res["launches"]["lane_route"],
-        "phase16_launches": dist_b["launches"]["lane_route"]}]})
+        "phase16_launches": dist_b["launches"]["lane_route"],
+        "phase17_launches": guard17["launches"]["lane_route"],
+        "phase17_ms": guard17["lane_route_ms"],
+        "phase17_plain_ms": guard17["lane_route_plain_ms"],
+        "phase17_bound_ms": guard17["lane_route_bound_ms"],
+        "phase17_max_abs_err": guard17["lane_route_max_abs_err"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
