@@ -183,18 +183,48 @@ started together), then runs these phases, each printing one JSON line:
     service to the host baseline and its heal to a service sized large
     from the start).
 
+18. the MoE, Mamba2-hybrid and RWKV6 serve paths, each at its published
+    config in bf16 with nothing cut, weights drawn on the card from the
+    seed, each model freed before the next: 18a Granite-MoE-1B (24
+    layers, d_model 1024, 32 experts top-8, capacity factor 1.25, tied
+    embeddings; 2.67 GB), 18b Zamba2-2.7B (54 layers: 45 Mamba2, d_inner
+    5120, 80 heads of 64, state 64, and one shared attention block
+    invoked every 6th layer, head_dim 80; 4.07 GB), 18c RWKV6-1.6B (24
+    layers, d_model 2048, 32 heads of 64; 3.17 GB).  Each: the published
+    shape and the parameter count; 4 lanes, an 8-token prompt and 32
+    greedy steps through ``serve.generate``, watched once and timed once
+    (decode ms a step with spread, tokens/s, prefill ms, weight and peak
+    GB, ``decode_profile``'s kernels a step and idle share, the step's
+    bound — MoE: only the experts this step's routing chose; Mamba2:
+    ``conv`` and ``state`` read and written; RWKV6: ``state``,
+    ``x_prev`` and ``cmix_x_prev`` — and its share); decode ≡ teacher
+    forcing within √(n·layers)·2⁻⁸·max |logit| (n bf16 roundings a
+    layer: 16 + 2k for MoE, 11 + 2K for Mamba2, 22 for RWKV6); a 4-layer
+    cut (Zamba2 6, one shared invocation) in float32 at 5e-4.  Granite's
+    checks run at capacity factor E/k = 4, where nothing is dropped, on
+    the same weights; its routing is compared with teacher forcing's
+    first (near-ties of the 8th and 9th probabilities move with bf16
+    rounding), and the tolerance holds with decode's routing forced on
+    teacher forcing, the free comparison reported beside it; its
+    published run reports the share of token-choices dropped each step.
+    Then the guard over each arch's 128 token events as 17b (card ≡ CPU
+    ≡ host, both kernels ≡ plain), and ``python -m
+    repro_torch.launch.serve --arch zamba2-2.7b --smoke --service`` on
+    the card exits 0.
+
 Phase 8 also times ``bitvector`` alone on the device: its launches
 queued behind a spin kernel, so host work leaves no gap between them
 (CUDA events), beside the host time of one wrapper call.
 
 Then the kernels line and, last, ``{"ok": true, "device": {...}}``.  Every
-comparison of kernel and plain version is exact (tolerance 0; phase 17a's
-model is no kernel and has the tolerances stated there): counts are
-f32 integers, exact below 2^24 in any order of summation, and the script
-checks that every count stays below 2^24; the arena's records, roots and
-stores are int32 node ids.  Any failure raises, so the exit
-code is not 0 and no result line is printed.  Without CUDA, or outside a
-checkout, it exits with an error before doing anything.
+comparison of kernel and plain version is exact (tolerance 0; the models
+of phases 17a and 18 are no kernels and have the tolerances stated
+there): counts are f32 integers, exact below 2^24 in any order of
+summation, and the script checks that every count stays below 2^24; the
+arena's records, roots and stores are int32 node ids.  Any failure
+raises, so the exit code is not 0 and no result line is printed.
+Without CUDA, or outside a checkout, it exits with an error before doing
+anything.
 """
 from __future__ import annotations
 
@@ -4062,29 +4092,66 @@ BF16_ROUNDINGS_PER_LAYER = 16
 F32_DECODE_TOL = 5e-4       # tests/test_archs.py: decode ≡ teacher forcing
 
 
-def decode_bound(model, cfg, lanes: int, index: int):
+def decode_bound(model, cfg, lanes: int, index: int, routing=None):
     """Least seconds of one decode step at position ``index`` for
-    ``lanes`` lanes, by bytes and by operations: every weight but the
-    embedding read once (the embedding is a gather of ``lanes`` rows), the
-    KV cache read up to ``index`` and its new entries written, the logits
-    written; two operations a weight per lane, plus the attention's.
-    Returns (seconds by bytes, seconds by operations, bytes)."""
-    emb = model.embed["embedding"]
-    weights = [p for n, p in model.named_parameters()
-               if n != "embed.embedding"]
-    w_bytes = sum(p.numel() * p.element_size() for p in weights)
-    w_matmul = sum(p.numel() for p in weights if p.ndim == 2)
+    ``lanes`` lanes, by bytes and by operations.  Bytes: every weight read
+    once but the embedding (a gather of ``lanes`` rows; read whole as the
+    unembedding where it is tied) and, in MoE layers, the experts this
+    step's routing left unchosen; each attention invocation's KV cache
+    read up to ``index`` (its new entries among them); Mamba2's ``conv``
+    and ``state`` and RWKV6's ``state``, ``x_prev`` and ``cmix_x_prev``
+    read and written; the logits written.  Operations: two a matmul
+    weight per lane (an expert's per token-choice it computes), the
+    attention's, and the recurrences' (6 a Mamba2 state element per lane:
+    decay, outer product, readout; 7 an RWKV6 one: outer product, bonus,
+    readout, decay).  ``routing`` (MoE): this step's ``experts`` ((layer,
+    expert) pairs chosen) and ``kept`` token-choices.  Returns (seconds by
+    bytes, seconds by operations, bytes)."""
+    from repro_torch.models.config import ATTN, MAMBA2, RWKV6, SHARED_ATTN
+    named = dict(model.named_parameters())
+    emb = named["embed.embedding"]
+    experts = {n: p for n, p in named.items() if ".moe.w" in n}
+    rest = [(n, p) for n, p in named.items()
+            if n != "embed.embedding" and n not in experts]
+    w_bytes = sum(p.numel() * p.element_size() for _, p in rest)
+    w_matmul = sum(p.numel() for n, p in rest
+                   if p.ndim == 2 and n.endswith(".w"))
+    if cfg.tie_embeddings:
+        w_bytes += emb.numel() * emb.element_size()
+        w_matmul += emb.numel()
     act = cfg.activation_dtype.itemsize
-    L, kv, hd, h = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, \
-        cfg.num_heads
-    cache = 2 * L * lanes * (index + 1) * kv * hd * act
-    nbytes = (w_bytes + lanes * cfg.d_model * emb.element_size() + cache
+    kinds = cfg.layer_kinds()
+    n_attn = sum(k in (ATTN, SHARED_ATTN) for k in kinds)
+    kv, hd, h = cfg.num_kv_heads, cfg.head_dim, cfg.num_heads
+    state = 2 * n_attn * lanes * (index + 1) * kv * hd * act
+    flops = 2 * lanes * w_matmul + 4 * n_attn * lanes * h * hd * (index + 1)
+    n_mamba = kinds.count(MAMBA2)
+    if n_mamba:
+        s = cfg.ssm
+        d_in = s.expand * cfg.d_model
+        H = s.num_heads or d_in // s.head_dim
+        elems = lanes * H * s.head_dim * s.state_dim
+        conv = lanes * (s.conv_width - 1) * (d_in + 2 * s.state_dim) * act
+        state += 2 * n_mamba * (conv + 4 * elems)
+        flops += 6 * n_mamba * elems
+    n_rwkv = kinds.count(RWKV6)
+    if n_rwkv:
+        elems = lanes * cfg.d_model * 64        # (H, 64, 64) a lane
+        state += 2 * n_rwkv * (4 * elems + 2 * lanes * cfg.d_model * act)
+        flops += 7 * n_rwkv * elems
+    if experts:
+        n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.num_layers))
+        per = n_moe * cfg.moe.num_experts
+        w_bytes += routing["experts"] * sum(
+            p.numel() * p.element_size() for p in experts.values()) / per
+        flops += 2 * routing["kept"] * sum(
+            p.numel() for p in experts.values()) / per
+    nbytes = (w_bytes + lanes * cfg.d_model * emb.element_size() + state
               + lanes * cfg.padded_vocab * act + 8 * lanes)
-    flops = 2 * lanes * w_matmul + 4 * L * lanes * h * hd * (index + 1)
     return nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOP_PER_S, nbytes
 
 
-def teacher_forcing_err(model, cfg, run) -> dict:
+def teacher_forcing_err(model, cfg, run, tag: str = "17a") -> dict:
     """The decode's logits (prefill, then each step) against
     ``forward_train`` over the same 40 tokens, on the card."""
     from repro_torch.models import forward_train
@@ -4097,9 +4164,9 @@ def teacher_forcing_err(model, cfg, run) -> dict:
                     dim=1)
     check(tuple(full.shape) == tuple(dec.shape) == (
         SERVE_LANES, SERVE_PROMPT + SERVE_TOKENS, cfg.padded_vocab),
-        f"17a: logits of shape {tuple(dec.shape)}")
+        f"{tag}: logits of shape {tuple(dec.shape)}")
     check(bool(torch.isfinite(dec).all() and torch.isfinite(full).all()),
-          "17a: every logit is finite")
+          f"{tag}: every logit is finite")
     full, dec = full.float(), dec.float()
     diff = dec - full
     top2 = full.topk(2, dim=-1).values
@@ -4306,12 +4373,13 @@ def guard_service(q, device, directory, raws):
             "encoded": encoded}
 
 
-def phase_serve_guard(run, work: Path, dev: str = "cuda") -> dict:
-    """17b: the guard over 17a's 4 × 32 token events: the service on the
-    card (one lane_route and one fused_scan launch a chunk) ≡ the same
-    service on the CPU ≡ the host ``PartitionedEngine``; then both kernels
-    ≡ plain on one more chunk of the guard's engine, with times and
-    bounds at the guard's shape."""
+def phase_serve_guard(run, work: Path, dev: str = "cuda",
+                      tag: str = "17b") -> dict:
+    """17b (and 18's guards): the guard over a decode's 4 × 32 token
+    events: the service on the card (one lane_route and one fused_scan
+    launch a chunk) ≡ the same service on the CPU ≡ the host
+    ``PartitionedEngine``; then both kernels ≡ plain on one more chunk of
+    the guard's engine, with times and bounds at the guard's shape."""
     from repro_torch.core import Event, compile_query
     from repro_torch.core.engine import Engine
     from repro_torch.core.partition import PartitionedEngine
@@ -4325,22 +4393,24 @@ def phase_serve_guard(run, work: Path, dev: str = "cuda") -> dict:
                            q.query.partition_by)
     host = np.array([len(pe.process(Event("TOK", {
         k: v for k, v in r.items() if k != "type"}))) for r in raws])
-    card = guard_service(q, dev, work / "guard_card", raws)
-    cpu = guard_service(q, "cpu", work / "guard_cpu", raws)
+    card = guard_service(q, dev, work / f"guard_card_{tag}", raws)
+    cpu = guard_service(q, "cpu", work / f"guard_cpu_{tag}", raws)
     check(same(card["counts"], host) and same(cpu["counts"], host),
-          "17b: per-position counts of the card's service ≡ the CPU "
+          f"{tag}: per-position counts of the card's service ≡ the CPU "
           "service's ≡ the host PartitionedEngine's")
-    check(not card["pad"].any() and not cpu["pad"].any(), "17b: pads inert")
+    check(not card["pad"].any() and not cpu["pad"].any(),
+          f"{tag}: pads inert")
     check(card["alerts"] == cpu["alerts"] and len(card["alerts"]) == int(
-        (host > 0).sum()), "17b: the same alerts, one a matching position")
+        (host > 0).sum()),
+        f"{tag}: the same alerts, one a matching position")
     n = card["chunks"]
     want = {k: 0 for k in card["launches"]}
     want.update(lane_route=n, fused_scan=n)
-    check(card["launches"] == want, f"17b launched {card['launches']}, "
+    check(card["launches"] == want, f"{tag} launched {card['launches']}, "
           f"expected one lane_route and one fused_scan a chunk")
-    check(not any(cpu["launches"].values()), "17b: the CPU service "
+    check(not any(cpu["launches"].values()), f"{tag}: the CPU service "
           "launches no kernel")
-    check(int(host.max()) < EXACT_LIMIT, "17b: counts below 2^24")
+    check(int(host.max()) < EXACT_LIMIT, f"{tag}: counts below 2^24")
 
     # both kernels ≡ plain on one more chunk of the card's guard engine
     eng = card["engine"]
@@ -4355,12 +4425,12 @@ def phase_serve_guard(run, work: Path, dev: str = "cuda") -> dict:
                               impl=impl)
     got = route()
     plain, s_plain = host_clock(lambda: route("ref"))
-    check(route_equal(got, plain), "17b: lane_route kernel ≡ plain")
+    check(route_equal(got, plain), f"{tag}: lane_route kernel ≡ plain")
     r_tb, r_to, _ = route_bound(eng.chunk_len, eng.num_lanes)
     ops_ = part_step_operands(eng, attrs, keys_dev)
     m_k, c_k = part_fused(eng, ops_, clone_state(st["C"]))
     m_p, c_p = part_fused(eng, ops_, clone_state(st["C"]), "ref")
-    check(same(m_k, m_p) and same(c_k, c_p), "17b: fused_scan ≡ plain")
+    check(same(m_k, m_p) and same(c_k, c_p), f"{tag}: fused_scan ≡ plain")
     st_t = clone_state(st["C"])
     f_tb, f_to, _ = part_fused_bound(eng, ops_)
     return {
@@ -4451,6 +4521,407 @@ def phase_serve(seed: int, smi: str) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the MoE, Mamba2-hybrid and RWKV6 serve paths at their published
+# widths, and the guard over each one's token stream
+# ---------------------------------------------------------------------------
+
+# the published configs (src/repro_torch/configs/): layers, d_model, heads,
+# KV heads, head_dim, d_ff, vocab, param and activation dtypes, and the
+# family's own widths
+PUBLISHED_18 = {
+    "granite-moe-1b-a400m": (24, 1024, 16, 8, 64, 512, 49155, "bfloat16",
+                             "bfloat16", ("moe", 32, 8, 512, 1.25)),
+    "zamba2-2.7b": (54, 2560, 32, 32, 80, 10240, 32000, "bfloat16",
+                    "bfloat16", ("mamba2", 80, 64, 64, 4, 256, 2, 6)),
+    "rwkv6-1.6b": (24, 2048, 32, 32, 64, 7168, 65536, "bfloat16",
+                   "bfloat16", ("rwkv6", 32, 64)),
+}
+TAGS_18 = {"granite-moe-1b-a400m": "18a", "zamba2-2.7b": "18b",
+           "rwkv6-1.6b": "18c"}
+# the f32 cuts: the same widths, 4 layers (Zamba2 6: five Mamba2 layers
+# and one shared-attention invocation)
+CUT_LAYERS_18 = {"granite-moe-1b-a400m": 4, "zamba2-2.7b": 6,
+                 "rwkv6-1.6b": 4}
+
+
+def family_18(cfg) -> str:
+    return "moe" if cfg.moe is not None else cfg.block_kind
+
+
+def roundings_18(cfg) -> int:
+    """bf16 roundings on a layer's path from input to output (phase 17's
+    16 for a dense attention layer).  MoE: the attention half's 10 (norm,
+    q/k/v projection, RoPE, scores, probabilities, AV, output projection,
+    residual), then the norm, the experts' two projections, their silu,
+    product and output projection, the combine's k gate products and k
+    adds, the residual: 16 + 2k.  Mamba2: the norm, in_proj, the conv's K
+    products and K adds, its bias and silu, the SSD output's cast from
+    f32, silu(z) and the gate product, the gated norm (2), out_proj, the
+    residual: 11 + 2K.  RWKV6: the norm, a lerp (3), a projection, the WKV
+    output's cast from f32, ln_x (2), the gate product, wo, the residual;
+    the channel mix's norm, lerp (3), key projection, squared relu, value
+    projection, sigmoid product, residual: 22."""
+    fam = family_18(cfg)
+    if fam == "moe":
+        return 16 + 2 * cfg.moe.top_k
+    if fam == "mamba2":
+        return 11 + 2 * cfg.ssm.conv_width
+    return 22
+
+
+def shape_18(cfg) -> tuple:
+    fam, m, s = family_18(cfg), cfg.moe, cfg.ssm
+    if fam == "moe":
+        own = ("moe", m.num_experts, m.top_k, m.d_ff, m.capacity_factor)
+    elif fam == "mamba2":
+        own = ("mamba2", s.num_heads, s.head_dim, s.state_dim, s.conv_width,
+               s.chunk, s.expand, cfg.shared_attn_every)
+    else:
+        own = ("rwkv6", cfg.d_model // 64, 64)
+    return (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.param_dtype,
+            cfg.dtype, own)
+
+
+def params_18(cfg) -> int:
+    """Parameters of the port's model: ``param_counts``' matmul weights
+    and embeddings plus what it leaves out — the norms' scales; Mamba2's
+    conv bias, ``A_log``, ``D``, ``dt_bias`` and gated norm (it counts
+    3·d_in for them); RWKV6's lerp weights, ``w0``, ``u`` and norms."""
+    d, kinds = cfg.d_model, cfg.layer_kinds()
+    extra = d                                              # final_norm
+    fam = family_18(cfg)
+    if fam == "moe":
+        extra += 2 * d * cfg.num_layers                    # ln1, ln2
+    elif fam == "mamba2":
+        s = cfg.ssm
+        d_in = s.expand * d
+        H = s.num_heads or d_in // s.head_dim
+        extra += kinds.count("mamba2") * (2 * s.state_dim + 3 * H + d - d_in)
+        extra += 2 * d                                     # the shared block
+    else:
+        extra += 12 * d * cfg.num_layers
+    return cfg.param_counts()[0] + extra
+
+
+class MoEProbe:
+    """Forward hooks on every MoE layer: per call, the experts chosen per
+    token and the margin between each token's k-th and (k+1)-th
+    probabilities (on the card), and host numbers read afterwards.  Its
+    hooks recompute the routing, so a run it watches is not timed."""
+
+    def __init__(self, model):
+        from repro_torch.models import moe
+        self.moe, self.calls = moe, []
+        self.handles = [m.register_forward_hook(self.hook)
+                        for m in model.modules() if isinstance(m, moe.MoE)]
+        self.layers = len(self.handles)
+
+    def hook(self, module, inputs, output):
+        x = inputs[0]
+        cfg = module.cfg
+        probs, _, choices = self.moe.route(module, cfg,
+                                           x.reshape(-1, x.shape[-1]))
+        top = probs.sort(dim=-1, descending=True).values
+        k = cfg.moe.top_k
+        self.calls.append((tuple(x.shape[:2]), choices,
+                           top[:, k - 1] - top[:, k],
+                           self.moe.capacity(cfg, x.shape[0] * x.shape[1])))
+
+    def remove(self):
+        for h in self.handles:
+            h.remove()
+
+    def steps(self, cfg):
+        """Per forward (``layers`` calls each): experts chosen summed over
+        layers, token-choices, those beyond capacity, and the kept."""
+        out = []
+        E = cfg.moe.num_experts
+        for i in range(0, len(self.calls), self.layers):
+            experts = choices = dropped = 0
+            for _shape, ch, _m, cap in self.calls[i:i + self.layers]:
+                counts = torch.bincount(ch.reshape(-1), minlength=E)
+                experts += int((counts > 0).sum())
+                choices += ch.numel()
+                dropped += int((counts - cap).clamp(min=0).sum())
+            out.append({"experts": experts, "choices": choices,
+                        "dropped": dropped, "kept": choices - dropped})
+        return out
+
+    def per_position(self, lanes: int):
+        """Each layer's (choices (lanes, S, k), margins (lanes, S)) over
+        every position the probe saw, in order."""
+        per = [[] for _ in range(self.layers)]
+        for i, (shape, ch, m, _) in enumerate(self.calls):
+            per[i % self.layers].append((ch.reshape(*shape, -1),
+                                         m.reshape(shape)))
+        return [(torch.cat([c for c, _ in p], 1), torch.cat(
+            [m for _, m in p], 1)) for p in per]
+
+
+def forced_teacher_forcing(model, cfg, run, dec_probe, tag: str) -> dict:
+    """Teacher forcing with each MoE layer routed as decode routed it:
+    decode's experts, in its order, with gates from teacher forcing's own
+    probabilities.  bf16 rounding moves the router's inputs, and a token
+    whose k-th and (k+1)-th probabilities nearly tie can then choose
+    another expert; with the choices held equal, what is left between
+    decode and teacher forcing is rounding."""
+    from repro_torch.models import moe
+    recorded = [c for c, _ in dec_probe.per_position(SERVE_LANES)]
+    calls = iter(range(len(recorded)))
+    plain = moe.route
+
+    def route(p, cfg_, xf):
+        probs, _, _ = plain(p, cfg_, xf)
+        choices = recorded[next(calls)].reshape(xf.shape[0], -1)
+        gates = probs.gather(1, choices)
+        gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True),
+                                    min=1e-9)
+        return probs, gates, choices
+
+    moe.route = route
+    try:
+        out = teacher_forcing_err(model, cfg, run, tag)
+    finally:
+        moe.route = plain
+    check(next(calls, None) is None, f"{tag}: every layer forced once")
+    return out
+
+
+def routing_agreement(dec_probe, tf_probe, lanes: int) -> dict:
+    """Decode's routing (prefill, then each step) against teacher
+    forcing's over the same tokens, layer by layer: token-choices routed
+    apart and the largest teacher-forcing margin among them."""
+    apart, tokens, worst = 0, 0, 0.0
+    for (c_d, _), (c_t, m_t) in zip(dec_probe.per_position(lanes),
+                                    tf_probe.per_position(lanes)):
+        rows = (c_d.sort(-1).values != c_t.sort(-1).values).any(-1)
+        apart += int(rows.sum())
+        tokens += rows.numel()
+        if rows.any():
+            worst = max(worst, float(m_t[rows].max()))
+    return {"tokens_routed_apart": apart, "token_layers": tokens,
+            "share_apart": apart / tokens,
+            "max_margin_apart": worst}
+
+
+def serve_arch(arch: str, seed: int, dev: str = "cuda") -> tuple:
+    """18a-c, one arch: its published config in bf16, nothing cut, weights
+    from the seed: the published shape and the parameter count; 4 lanes,
+    an 8-token prompt and 32 greedy steps through
+    ``repro_torch.launch.serve.generate``, timed (decode ms a step with
+    spread, tokens/s, prefill ms, the step's bound and share, weight and
+    peak GB, ``decode_profile``); decode ≡ teacher forcing within bf16's
+    rounding; a 4-6-layer cut of the same widths in float32 at 5e-4.  For
+    an MoE arch the checks run at capacity factor E/k, where nothing is
+    dropped (the same weights: the factor draws nothing), and the
+    published run reports the share of token-choices dropped a step."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params
+    tag = TAGS_18[arch]
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem_start = torch.cuda.memory_allocated() / 1e9
+    serve.set_matmul_precision()
+    cfg = get_config(arch)
+    fam = family_18(cfg)
+    check(shape_18(cfg) == PUBLISHED_18[arch],
+          f"{tag}: the published shape, {shape_18(cfg)}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, _ = init_params(cfg, seed, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    check(n_params == params_18(cfg), f"{tag}: {n_params} parameters, "
+          f"{params_18(cfg)} expected")
+    peak_init = torch.cuda.max_memory_allocated() / 1e9
+    prompt = serve.make_prompt(cfg, SERVE_LANES, SERVE_PROMPT, dev,
+                               seed=seed + 1)
+    res = {"arch": arch, "family": fam, "shape": shape_18(cfg),
+           "lanes": SERVE_LANES, "prompt": SERVE_PROMPT,
+           "tokens": SERVE_TOKENS, "params": n_params,
+           "param_GB": param_bytes / 1e9, "init_s": init_s,
+           "mem_at_start_GB": mem_start, "peak_mem_GB_init": peak_init}
+
+    # the published run, watched: the routing of each step (MoE), and the
+    # warm-up of the timed run
+    probe = MoEProbe(model) if fam == "moe" else None
+    watched = serve.generate(model, cfg, prompt, SERVE_TOKENS)
+    routing = None
+    if probe is not None:
+        probe.remove()
+        routing = probe.steps(cfg)
+        check(len(routing) == SERVE_TOKENS + 1, f"{tag}: {len(routing)} "
+              f"routed forwards")
+        res["moe"] = {
+            "capacity_factor": cfg.moe.capacity_factor,
+            "cap_prefill": probe.calls[0][3], "cap_decode": probe.calls[-1][3],
+            "dropped_share_prefill": routing[0]["dropped"]
+            / routing[0]["choices"],
+            "dropped_share_per_step": [r["dropped"] / r["choices"]
+                                       for r in routing[1:]],
+            "experts_per_layer_per_step": [r["experts"] / probe.layers
+                                           for r in routing[1:]]}
+        del probe
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = serve.generate(model, cfg, prompt, SERVE_TOKENS)
+    peak_run = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = [1e3 * s for s in run.step_s]
+    prof = decode_profile(model, cfg, prompt)
+    med = float(np.median(step_ms))
+    bounds = [decode_bound(model, cfg, SERVE_LANES, SERVE_PROMPT + t,
+                           None if routing is None else routing[1 + t])
+              for t in range(SERVE_TOKENS)]
+    b_bytes = float(np.mean([b[0] for b in bounds]))
+    b_ops = float(np.mean([b[1] for b in bounds]))
+    bound_ms = 1e3 * max(b_bytes, b_ops)
+    res.update({
+        "peak_mem_GB_decode": peak_run,
+        "prefill_ms": 1e3 * run.prefill_s,
+        "prefill_ms_first_run": 1e3 * watched.prefill_s,
+        "decode_ms_per_step_median": med,
+        "decode_ms_per_step": step_ms,
+        "decode_ms_spread": {"min": min(step_ms), "max": max(step_ms),
+                             "p10": float(np.percentile(step_ms, 10)),
+                             "p90": float(np.percentile(step_ms, 90))},
+        "tokens_per_s": SERVE_LANES / (med / 1e3),
+        "decode_bound_ms": bound_ms,
+        "decode_bound_by": "bytes" if b_bytes >= b_ops else "operations",
+        "decode_bound_GB": float(np.mean([b[2] for b in bounds])) / 1e9,
+        "bound_share": bound_ms / med, "profile": prof,
+        "rerun_tokens_equal": bool(np.array_equal(run.tokens,
+                                                  watched.tokens))})
+    del watched
+
+    # decode ≡ teacher forcing in bf16 (MoE: at capacity factor E/k)
+    tf_cfg = cfg
+    if fam == "moe":
+        tf_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        model, _ = init_params(tf_cfg, seed, dev)
+    dec_probe = MoEProbe(model) if fam == "moe" else None
+    checked = serve.generate(model, tf_cfg, prompt, SERVE_TOKENS,
+                             keep_logits=True)
+    if dec_probe is not None:
+        dec_probe.remove()
+        tf_probe = MoEProbe(model)
+    tf = teacher_forcing_err(model, tf_cfg, checked, tag)
+    n = roundings_18(cfg)
+    tol = (math.sqrt(n * cfg.num_layers) * BF16_UNIT * tf["logit_max_abs"])
+    rule = f"sqrt({n} * layers) * 2^-8 * max |logit|"
+    held = tf
+    if dec_probe is not None:
+        # MoE: routing compared first; the tolerance holds with decode's
+        # choices, and the free teacher forcing is reported beside it
+        tf_probe.remove()
+        check(all(r["dropped"] == 0 for r in dec_probe.steps(tf_cfg)),
+              f"{tag}: nothing dropped at capacity factor E/k")
+        tf["routing"] = routing_agreement(dec_probe, tf_probe, SERVE_LANES)
+        held = forced_teacher_forcing(model, tf_cfg, checked, dec_probe,
+                                      tag)
+        tf["with_decode_routing"] = held
+        rule += ", with decode's routing"
+        del dec_probe, tf_probe
+    check(held["max_abs_err"] <= tol, f"{tag}: bf16 decode ≡ teacher "
+          f"forcing: max |Δ| {held['max_abs_err']} > {tol}")
+    res["teacher_forcing"] = dict(
+        tf, tolerance=tol, capacity_factor=(
+            tf_cfg.moe.capacity_factor if fam == "moe" else None),
+        tolerance_rule=rule)
+    del model, checked
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same widths, cut in depth, in float32
+    layers = CUT_LAYERS_18[arch]
+    cut = dataclasses.replace(tf_cfg, num_layers=layers, dtype="float32",
+                              param_dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    model, _ = init_params(cut, seed, dev)
+    cut_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    cut_run = serve.generate(model, cut, prompt, SERVE_TOKENS,
+                             keep_logits=True)
+    cut_tf = teacher_forcing_err(model, cut, cut_run, tag)
+    check(cut_tf["max_abs_err"] < F32_DECODE_TOL, f"{tag} cut: float32 "
+          f"decode ≡ teacher forcing: {cut_tf['max_abs_err']} ≥ "
+          f"{F32_DECODE_TOL}")
+    res["cut"] = {
+        "case": f"the {layers}-layer cut of the published widths, float32",
+        "layers": layers, "segments": cut.segments(),
+        "param_GB": cut_bytes / 1e9,
+        "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
+        "decode_ms_per_step_median": float(np.median(
+            [1e3 * s for s in cut_run.step_s])),
+        "teacher_forcing": dict(cut_tf, tolerance=F32_DECODE_TOL)}
+    del model, cut_run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, run
+
+
+def serve18_subprocess(work: Path) -> dict:
+    """18: ``python -m repro_torch.launch.serve --arch zamba2-2.7b --smoke
+    --service`` on the card exits 0."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "zamba2-2.7b", "--smoke", "--service", "--service-dir",
+           str(work / "launcher18_svc")]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, env=env, cwd=ROOT, text=True,
+                         capture_output=True, timeout=300)
+    check(out.returncode == 0, f"18: the zamba2 launcher exited "
+          f"{out.returncode}: {out.stderr[-2000:]}")
+    lines = out.stdout.splitlines()
+    check(len(lines) == 1 and "guardrail alerts across" in lines[0] and
+          "compile_count=1" in lines[0], f"18: launcher: {lines}")
+    return {"launcher": lines, "seconds": time.perf_counter() - t0}
+
+
+def phase_serve_families(seed: int, smi: str) -> dict:
+    """Phase 18: Granite-MoE-1B (18a), Zamba2-2.7B (18b) and RWKV6-1.6B
+    (18c) at their published widths, each freed before the next, each
+    token stream guarded on the card ≡ the CPU ≡ the host; then the
+    Zamba2 launcher with ``--service`` as a subprocess."""
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_serve18_",
+                                 dir=ROOT / "build"))
+    archs, guards, secs = {}, {}, {}
+    try:
+        for arch in TAGS_18:
+            t0 = time.perf_counter()
+            res, run = serve_arch(arch, seed)
+            tag = TAGS_18[arch]
+            guards[arch] = phase_serve_guard(run, work, tag=tag)
+            guards[arch]["decode_ms_per_step_median"] = res[
+                "decode_ms_per_step_median"]
+            archs[arch] = res
+            secs[tag] = time.perf_counter() - t0
+            del run
+        t0 = time.perf_counter()
+        sub = serve18_subprocess(work)
+        secs["18d"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    result = {"phase": 18, "case": "the MoE, Mamba2-hybrid and RWKV6 serve "
+              "paths at their published widths, bf16, and their token "
+              "streams' guards", "nvidia_smi": smi, "models": archs,
+              "guards": guards, "subprocess": sub, "seconds": secs}
+    emit(result)
+    return result
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4514,6 +4985,8 @@ def main() -> None:
     dist_a, dist_b = dist_res["sharded_scans"], dist_res["routed_feed"]
     serve_res = phase("17 serve", phase_serve, seed, smi)
     guard17 = serve_res["guard"]
+    fam_res = phase("18 serve families", phase_serve_families, seed, smi)
+    guards18 = list(fam_res["guards"].values())
     emit({"phase_seconds": spans,
           "total_s": time.perf_counter() - t_main})
     unf = unf_res["kernels"]
@@ -4525,10 +4998,13 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/fused_scan.cu",
         "replaces": "src/repro/kernels/fused_scan.py:215",
         "launches": main_res["launches"],
-        "max_abs_err": max(main_res["max_abs_err"], fleet15_err,
-                           guard17["fused_scan_max_abs_err"]),
-        "max_abs_diff": max(main_res["max_abs_err"], fleet15_err,
-                            guard17["fused_scan_max_abs_err"]),
+        "max_abs_err": max([main_res["max_abs_err"], fleet15_err,
+                            guard17["fused_scan_max_abs_err"]]
+                           + [g["fused_scan_max_abs_err"] for g in guards18]),
+        "max_abs_diff": max([main_res["max_abs_err"], fleet15_err,
+                             guard17["fused_scan_max_abs_err"]]
+                            + [g["fused_scan_max_abs_err"]
+                               for g in guards18]),
         "ms": main_res["kernel_ms_per_chunk"],
         "plain_ms": main_res["plain_ms_per_chunk"],
         "bound_ms": main_res["bound_ms"],
@@ -4552,6 +5028,11 @@ def main() -> None:
         "phase17_plain_ms": guard17["fused_scan_plain_ms"],
         "phase17_bound_ms": guard17["fused_scan_bound_ms"],
         "phase17_max_abs_err": guard17["fused_scan_max_abs_err"],
+        "phase18_launches": sum(g["launches"]["fused_scan"]
+                                for g in guards18),
+        "phase18_ms": [g["fused_scan_ms"] for g in guards18],
+        "phase18_plain_ms": [g["fused_scan_plain_ms"] for g in guards18],
+        "phase18_bound_ms": [g["fused_scan_bound_ms"] for g in guards18],
         "phase15_buckets": {k: {x: v[x] for x in (
             "S", "NQ", "k", "state_bucket", "n_split", "kernel_ms",
             "plain_ms", "bound_ms", "bound_by")}
@@ -4623,9 +5104,10 @@ def main() -> None:
         "replaces": "src/repro/vector/partitioned.py:182 (lax.scan, "
                     "not a Pallas kernel)",
         "launches": part_res["launches"]["lane_route"],
-        "max_abs_err": max(part_res["lane_route_max_abs_err"],
-                           exact_res["lane_route_max_abs_err"],
-                           guard17["lane_route_max_abs_err"]),
+        "max_abs_err": max([part_res["lane_route_max_abs_err"],
+                            exact_res["lane_route_max_abs_err"],
+                            guard17["lane_route_max_abs_err"]]
+                           + [g["lane_route_max_abs_err"] for g in guards18]),
         "ms": part_res["lane_route_ms"],
         "plain_ms": part_res["lane_route_plain_ms"],
         "bound_ms": part_res["lane_route_bound_ms"],
@@ -4640,7 +5122,12 @@ def main() -> None:
         "phase17_ms": guard17["lane_route_ms"],
         "phase17_plain_ms": guard17["lane_route_plain_ms"],
         "phase17_bound_ms": guard17["lane_route_bound_ms"],
-        "phase17_max_abs_err": guard17["lane_route_max_abs_err"]}]})
+        "phase17_max_abs_err": guard17["lane_route_max_abs_err"],
+        "phase18_launches": sum(g["launches"]["lane_route"]
+                                for g in guards18),
+        "phase18_ms": [g["lane_route_ms"] for g in guards18],
+        "phase18_plain_ms": [g["lane_route_plain_ms"] for g in guards18],
+        "phase18_bound_ms": [g["lane_route_bound_ms"] for g in guards18]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

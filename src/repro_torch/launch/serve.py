@@ -13,7 +13,10 @@ surface as guardrail hits beside the generated tokens.
 The model runs on the CUDA device unless ``--device cpu`` asks for the CPU,
 and raises without a card.  ``--smoke`` takes the arch's reduced config;
 without it the published config runs whole on one card (Qwen2.5-14B in
-bf16 holds 29.5 GB of weights), with no mesh: one card needs no sharding.
+bf16 holds 29.5 GB of weights; Granite-MoE-1B, Zamba2-2.7B and RWKV6-1.6B
+2.7-4.1 GB), with no mesh: one card needs no sharding.  The dense GQA,
+MoE (``granite-moe-1b-a400m``), Mamba2-hybrid (``zamba2-2.7b``) and RWKV6
+(``rwkv6-1.6b``) archs run; the others raise ``NotImplementedError``.
 
 Without ``--service`` the guard is the in-process host executor.  With it,
 the guard is the :class:`repro_torch.runtime.StreamService` over
@@ -61,14 +64,21 @@ def set_matmul_precision() -> None:
 
 
 def grow_caches(caches, tgt: int):
-    """Pad every attention cache's sequence axis to ``tgt``."""
+    """Pad each attention cache's sequence axis to ``tgt``, as the
+    reference's does: ``k``/``v`` on axis ``ndim - 3`` (stacked ``(layers,
+    B, S, KV, D)`` or a shared invocation's ``(B, S, KV, D)``),
+    ``c_kv``/``k_rope`` on ``ndim - 2``; every other leaf (Mamba2's
+    ``conv``/``state``, RWKV6's ``x_prev``/``state``) stays as it is."""
+    def pad(v, axis):
+        return F.pad(v, [0, 0] * (v.ndim - 1 - axis)
+                     + [0, tgt - v.shape[axis]])
+
+    axis_from_end = {"k": 3, "v": 3, "c_kv": 2, "k_rope": 2}
     segs = []
     for seg in caches["segments"]:
-        mixer = {}
-        for k, v in seg["mixer"].items():
-            axis = v.ndim - 3                    # (layers, B, S, KV, D)
-            pad = [0, 0] * (v.ndim - 1 - axis) + [0, tgt - v.shape[axis]]
-            mixer[k] = F.pad(v, pad)
+        mixer = {k: pad(v, v.ndim - axis_from_end[k])
+                 if k in axis_from_end else v
+                 for k, v in seg["mixer"].items()}
         segs.append(dict(seg, mixer=mixer))
     return dict(caches, segments=segs)
 

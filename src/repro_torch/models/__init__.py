@@ -1,15 +1,20 @@
 """The LM serve path on PyTorch: the reference's ``models`` package for the
-dense GQA family (config, layers, attention, the stack, the serve and
-prefill steps, and weights carried over from the reference)."""
+dense GQA, MoE, Mamba2 (with Zamba2's shared attention) and RWKV6
+families (config, layers, attention, MoE, SSD, WKV, the stack, the serve
+and prefill steps, and weights carried over from the reference)."""
 from .config import (ATTN, MAMBA2, RWKV6, SHARED_ATTN, ModelConfig, MoEConfig,
                      SSMConfig)
 from .convert import params_from_jax
-from .stack import (Block, MLP, Stack, decode_step, forward_train,
-                    init_params, prefill, unported_features)
+from .moe import MoE, moe_apply
+from .rwkv import RWKV6 as RWKV6Mixer
+from .ssm import Mamba2, ssd_chunked, ssd_reference
+from .stack import (Block, MLP, Stack, channel_mix, decode_step,
+                    forward_train, init_params, prefill, unported_features)
 from .steps import init_decode_caches, make_prefill_step, make_serve_step
 
 __all__ = ["ATTN", "MAMBA2", "RWKV6", "SHARED_ATTN", "ModelConfig",
-           "MoEConfig", "SSMConfig", "params_from_jax", "Block", "MLP",
-           "Stack", "decode_step", "forward_train", "init_params", "prefill",
-           "unported_features", "init_decode_caches", "make_prefill_step",
-           "make_serve_step"]
+           "MoEConfig", "SSMConfig", "params_from_jax", "MoE", "moe_apply",
+           "RWKV6Mixer", "Mamba2", "ssd_chunked", "ssd_reference", "Block",
+           "MLP", "Stack", "channel_mix", "decode_step", "forward_train",
+           "init_params", "prefill", "unported_features",
+           "init_decode_caches", "make_prefill_step", "make_serve_step"]

@@ -18,10 +18,10 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn as nn
 
 from .config import ModelConfig
-from .layers import apply_rope, dense, dense_init, rmsnorm, rmsnorm_init
+from .layers import (ParamTree, apply_rope, dense, dense_init, rmsnorm,
+                     rmsnorm_init)
 
 ATTN_CHUNK_Q = 1024  # query chunk for online-softmax attention
 ATTN_CHUNK_K = 2048  # KV chunk
@@ -177,12 +177,12 @@ def gqa_decode(p, cfg: ModelConfig, x, cache, index: int):
     return dense(p["wo"], out), {"k": k, "v": v}
 
 
-class Attention(nn.ModuleDict):
+class Attention(ParamTree):
     """One GQA mixer's weights (``wq``, ``wk``, ``wv``, ``wo``, optional
     ``qnorm``/``knorm``), keyed as the reference's params tree."""
 
     def __init__(self, cfg: ModelConfig, params: dict):
-        super().__init__({k: nn.ParameterDict(v) for k, v in params.items()})
+        super().__init__(params)
         self.cfg = cfg
 
     def forward(self, x, causal: bool = True):

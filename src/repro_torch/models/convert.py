@@ -4,7 +4,13 @@
 The reference stacks each segment's layers along a leading axis
 (``segments[s][...]`` of shape ``(count, ...)``); the port keeps one
 :class:`~repro_torch.models.stack.Block` per layer, so layer ``i`` of
-segment ``s`` is block ``offset(s) + i``.
+segment ``s`` is block ``offset(s) + i``, counting the layers of the
+segments before it that are not shared attention.  A shared-attention
+segment's dict is empty in the reference (its weights are
+``shared_block``, no layer axis), so it holds no block.  Each leaf is
+copied into the parameter's own dtype: the float32 leaves of a bfloat16
+model (Mamba2's ``A_log``, ``D``, ``dt_bias``; RWKV6's ``w0``, ``u``)
+stay float32.
 """
 from __future__ import annotations
 
@@ -14,7 +20,7 @@ import numpy as np
 import torch
 
 from ..vector.engine import resolve_device
-from .config import ModelConfig
+from .config import SHARED_ATTN, ModelConfig
 from .stack import Stack
 
 
@@ -37,7 +43,9 @@ def _unstack(flat: Dict[str, np.ndarray], cfg: ModelConfig
     """``segments.s.<leaf>`` of shape (count, ...) → ``blocks.j.<leaf>``."""
     out, offset = {}, {}
     start = 0
-    for s, (_kind, _moe, count) in enumerate(cfg.segments()):
+    for s, (kind, _moe, count) in enumerate(cfg.segments()):
+        if kind == SHARED_ATTN:
+            continue
         offset[str(s)] = (start, count)
         start += count
     for name, arr in flat.items():

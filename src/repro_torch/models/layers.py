@@ -15,9 +15,37 @@ import math
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn as nn
 import torch.nn.functional as F
 
 Params = Dict[str, Any]
+
+
+class ParamTree(nn.Module):
+    """A subtree of the reference's params tree as a module: each dict node
+    a child module, each tensor leaf a parameter, under its key, so the
+    functional layers read it as they read a params dict (``tree[key]``,
+    ``key in tree``).  ``children`` gives the module to hold a key instead
+    (a mixer, an MLP), built from the same subtree."""
+
+    def __init__(self, params: Params, children: Optional[dict] = None):
+        super().__init__()
+        children = children or {}
+        for k, v in params.items():
+            if k in children:
+                self.add_module(k, children[k])
+            elif isinstance(v, dict):
+                self.add_module(k, ParamTree(v))
+            else:
+                self.register_parameter(k, nn.Parameter(v))
+
+    def __getitem__(self, key: str):
+        if key in self._parameters:
+            return self._parameters[key]
+        return self._modules[key]
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
 
 
 def normal(gen: Optional[torch.Generator], shape, std: float, dtype,
@@ -52,6 +80,12 @@ def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)``, with no linear cut-off
+    (``F.softplus`` returns ``x`` itself above 20)."""
+    return torch.logaddexp(x, x.new_zeros(()))
 
 
 def rmsnorm_init(dim: int, dtype, device=None):

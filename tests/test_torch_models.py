@@ -29,8 +29,10 @@ from repro_torch.models import (attention, decode_step, forward_train,
 
 DENSE_ARCHS = ["qwen2p5_14b", "qwen3_32b", "starcoder2_15b",
                "deepseek_coder_33b"]
-OTHER_ARCHS = ["zamba2_2p7b", "deepseek_v3_671b", "granite_moe_1b",
-               "rwkv6_1p6b", "whisper_base", "internvl2_1b"]
+# the archs still unported: MLA and MTP, encoder and cross-attention, the
+# vision stub (the MoE, Mamba2 and RWKV6 archs: tests/test_torch_moe.py and
+# tests/test_torch_recurrent.py)
+OTHER_ARCHS = ["deepseek_v3_671b", "whisper_base", "internvl2_1b"]
 
 
 def to_np(tree):
