@@ -212,13 +212,44 @@ started together), then runs these phases, each printing one JSON line:
     repro_torch.launch.serve --arch zamba2-2.7b --smoke --service`` on
     the card exits 0.
 
+19. the encoder-decoder, vision-prefix and MLA serve paths, each arch in
+    a process of its own (``chip_smoke.py --serve-worker ARCH``), so the
+    card's memory is freed between them, weights drawn on the card from
+    the seed, bf16 activations: 19a Whisper-base's published config (6
+    encoder and 6 decoder layers, d_model 512, 8 heads of 64, d_ff 2048
+    GELU, vocab 51865, 1500 frames, tied embeddings, f32 weights: 0.28
+    GB), 19b InternVL2-1B's (24 layers, d_model 896, 14 heads, 2 KV,
+    head_dim 64, d_ff 4864, vocab 151655, QKV bias, a prefix of 256
+    patches of width 1024; 0.99 GB), 19c DeepSeek-V3 at its published
+    widths (d_model 7168, 128 heads, MLA ranks 1536 / 512, head widths
+    128 / 64 / 128, 256 experts top-8 of d_ff 2048 and one shared,
+    dense d_ff 18432, vocab 129280, MTP depth 1) with its 61 layers cut
+    to 5, the 3 dense and 2 MoE (54.6 GB; ``reduced`` on the phase's
+    line).  Each as 18a-c: the published shape and the parameter count;
+    the frames (4 × 1500 × 512) or patches (4 × 256 × 1024) drawn from
+    the seed; 4 lanes, an 8-token prompt and 32 greedy steps through
+    ``serve.generate``, watched once and timed once (decode ms a step
+    with spread, tokens/s, prefill ms with Whisper's encoder and
+    InternVL's 264 positions, weight and peak GB, ``decode_profile``, the
+    step's bound — weights a step reads, only chosen experts, KV or
+    latent caches, Whisper's ``cross_kv`` — and its share); decode ≡
+    teacher forcing within √(n·layers)·2⁻⁸·max |logit| (n = 23 for
+    Whisper, its encoder's layers counted, 16 for InternVL, compared at
+    every position of the prefix too, 43 for DeepSeek-V3, at capacity
+    factor E/k with decode's routing forced, its MTP logits finite);
+    the f32 checks at 5e-4: Whisper whole, InternVL at 4 layers,
+    DeepSeek-V3 at one dense and one MoE layer with MTP (58.5 GB, in a
+    process of its own after the bf16 model's), where the expanded MLA
+    decode ≡ the absorbed one at 5e-4.  Then the guard over each arch's
+    128 token events as 17b (card ≡ CPU ≡ host, both kernels ≡ plain).
+
 Phase 8 also times ``bitvector`` alone on the device: its launches
 queued behind a spin kernel, so host work leaves no gap between them
 (CUDA events), beside the host time of one wrapper call.
 
 Then the kernels line and, last, ``{"ok": true, "device": {...}}``.  Every
 comparison of kernel and plain version is exact (tolerance 0; the models
-of phases 17a and 18 are no kernels and have the tolerances stated
+of phases 17a, 18 and 19 are no kernels and have the tolerances stated
 there): counts are f32 integers, exact below 2^24 in any order of
 summation, and the script checks that every count stays below 2^24; the
 arena's records, roots and stores are int32 node ids.  Any failure
@@ -240,6 +271,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -4094,25 +4126,35 @@ F32_DECODE_TOL = 5e-4       # tests/test_archs.py: decode ≡ teacher forcing
 
 def decode_bound(model, cfg, lanes: int, index: int, routing=None):
     """Least seconds of one decode step at position ``index`` for
-    ``lanes`` lanes, by bytes and by operations.  Bytes: every weight read
-    once but the embedding (a gather of ``lanes`` rows; read whole as the
-    unembedding where it is tied) and, in MoE layers, the experts this
-    step's routing left unchosen; each attention invocation's KV cache
-    read up to ``index`` (its new entries among them); Mamba2's ``conv``
-    and ``state`` and RWKV6's ``state``, ``x_prev`` and ``cmix_x_prev``
-    read and written; the logits written.  Operations: two a matmul
-    weight per lane (an expert's per token-choice it computes), the
-    attention's, and the recurrences' (6 a Mamba2 state element per lane:
-    decay, outer product, readout; 7 an RWKV6 one: outer product, bonus,
-    readout, decay).  ``routing`` (MoE): this step's ``experts`` ((layer,
-    expert) pairs chosen) and ``kept`` token-choices.  Returns (seconds by
-    bytes, seconds by operations, bytes)."""
+    ``lanes`` lanes, by bytes and by operations.  Bytes: every weight that
+    a step reads, once — not the embedding (a gather of ``lanes`` rows;
+    read whole as the unembedding where it is tied), nor the weights a
+    step leaves alone (Whisper's encoder and its cross-attention's
+    ``wk``/``wv``, whose keys and values are cached; InternVL's
+    ``frontend_proj``; DeepSeek-V3's ``mtp``), nor, in MoE layers, the
+    experts this step's routing left unchosen; each attention
+    invocation's KV cache read up to ``index`` (its new entries among
+    them; MLA's latent ``c_kv`` and ``k_rope``), Whisper's ``cross_kv``
+    over the encoder's positions; Mamba2's ``conv`` and ``state`` and
+    RWKV6's ``state``, ``x_prev`` and ``cmix_x_prev`` read and written;
+    the logits written.  Operations: two a matmul weight per lane (an
+    expert's per token-choice it computes), the attention's (MLA in
+    latent space: scores over ``kv_lora_rank + rope_head_dim``, values
+    over ``kv_lora_rank``), and the recurrences' (6 a Mamba2 state
+    element per lane: decay, outer product, readout; 7 an RWKV6 one:
+    outer product, bonus, readout, decay).  ``routing`` (MoE): this
+    step's ``experts`` ((layer, expert) pairs chosen) and ``kept``
+    token-choices.  Returns (seconds by bytes, seconds by operations,
+    bytes)."""
     from repro_torch.models.config import ATTN, MAMBA2, RWKV6, SHARED_ATTN
     named = dict(model.named_parameters())
     emb = named["embed.embedding"]
     experts = {n: p for n, p in named.items() if ".moe.w" in n}
+    unread = ("encoder.", "frontend_proj.", "mtp.")
     rest = [(n, p) for n, p in named.items()
-            if n != "embed.embedding" and n not in experts]
+            if n != "embed.embedding" and n not in experts
+            and not n.startswith(unread)
+            and ".cross.wk." not in n and ".cross.wv." not in n]
     w_bytes = sum(p.numel() * p.element_size() for _, p in rest)
     w_matmul = sum(p.numel() for n, p in rest
                    if p.ndim == 2 and n.endswith(".w"))
@@ -4123,8 +4165,17 @@ def decode_bound(model, cfg, lanes: int, index: int, routing=None):
     kinds = cfg.layer_kinds()
     n_attn = sum(k in (ATTN, SHARED_ATTN) for k in kinds)
     kv, hd, h = cfg.num_kv_heads, cfg.head_dim, cfg.num_heads
-    state = 2 * n_attn * lanes * (index + 1) * kv * hd * act
-    flops = 2 * lanes * w_matmul + 4 * n_attn * lanes * h * hd * (index + 1)
+    if cfg.attention == "mla":
+        kvr, rd = cfg.kv_lora_rank, cfg.rope_head_dim
+        state = n_attn * lanes * (index + 1) * (kvr + rd) * act
+        attn_flops = 2 * n_attn * lanes * h * (index + 1) * (2 * kvr + rd)
+    else:
+        state = 2 * n_attn * lanes * (index + 1) * kv * hd * act
+        attn_flops = 4 * n_attn * lanes * h * hd * (index + 1)
+    flops = 2 * lanes * w_matmul + attn_flops
+    if cfg.cross_attention:
+        state += 2 * n_attn * lanes * cfg.encoder_seq * kv * hd * act
+        flops += 4 * n_attn * lanes * h * hd * cfg.encoder_seq
     n_mamba = kinds.count(MAMBA2)
     if n_mamba:
         s = cfg.ssm
@@ -4152,35 +4203,49 @@ def decode_bound(model, cfg, lanes: int, index: int, routing=None):
 
 
 def teacher_forcing_err(model, cfg, run, tag: str = "17a") -> dict:
-    """The decode's logits (prefill, then each step) against
-    ``forward_train`` over the same 40 tokens, on the card."""
+    """The decode's logits (prefill over the prefix, then each step)
+    against ``forward_train`` over the same tokens and frontend input, on
+    the card: every position, InternVL's patches included, so each decode
+    step is compared at ``prefix + prompt + t``.  With MTP, its logits
+    are checked finite and of the same shape."""
     from repro_torch.models import forward_train
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    full = forward_train(model, cfg, {"tokens": run.fed})[0]
+    full, _, mtp = forward_train(model, cfg, dict(run.frontend,
+                                                  tokens=run.fed))
     torch.cuda.synchronize()
     tf_s = time.perf_counter() - t0
     dec = torch.cat([run.prefill_logits, torch.stack(run.step_logits, 1)],
                     dim=1)
     check(tuple(full.shape) == tuple(dec.shape) == (
-        SERVE_LANES, SERVE_PROMPT + SERVE_TOKENS, cfg.padded_vocab),
-        f"{tag}: logits of shape {tuple(dec.shape)}")
+        SERVE_LANES, run.prefix + SERVE_PROMPT + SERVE_TOKENS,
+        cfg.padded_vocab), f"{tag}: logits of shape {tuple(dec.shape)}")
     check(bool(torch.isfinite(dec).all() and torch.isfinite(full).all()),
           f"{tag}: every logit is finite")
+    out = {}
+    if cfg.mtp_depth:
+        check(mtp is not None and mtp.shape == full.shape and
+              bool(torch.isfinite(mtp).all()),
+              f"{tag}: MTP logits finite, of the logits' shape")
+        out["mtp_logit_max_abs"] = float(mtp.float().abs().max())
     full, dec = full.float(), dec.float()
     diff = dec - full
     top2 = full.topk(2, dim=-1).values
-    return {"max_abs_err": float(diff.abs().max()),
-            "logit_max_abs": float(full.abs().max()),
-            "logit_rms": float(full.square().mean().sqrt()),
-            "rel_rms_err": float(diff.norm() / full.norm()),
-            "argmax_agree": float((dec.argmax(-1) == full.argmax(-1))
-                                  .float().mean()),
-            "min_top2_margin": float((top2[..., 0] - top2[..., 1]).min()),
-            "teacher_forcing_ms": 1e3 * tf_s}
+    out.update({"max_abs_err": float(diff.abs().max()),
+                "positions": full.shape[1], "prefix": run.prefix,
+                "logit_max_abs": float(full.abs().max()),
+                "logit_rms": float(full.square().mean().sqrt()),
+                "rel_rms_err": float(diff.norm() / full.norm()),
+                "argmax_agree": float((dec.argmax(-1) == full.argmax(-1))
+                                      .float().mean()),
+                "min_top2_margin": float((top2[..., 0] - top2[..., 1])
+                                         .min()),
+                "teacher_forcing_ms": 1e3 * tf_s})
+    return out
 
 
-def decode_profile(model, cfg, prompt, steps: int = 4) -> dict:
+def decode_profile(model, cfg, prompt, steps: int = 4,
+                   frontend=None) -> dict:
     """Decode steps under ``torch.profiler`` after one warm step: kernels
     a step, the device's busy time (the union of the kernels' intervals)
     against the host clock, and the idle share.  Without device events in
@@ -4189,19 +4254,20 @@ def decode_profile(model, cfg, prompt, steps: int = 4) -> dict:
 
     from repro_torch.launch import serve
     from repro_torch.models import make_serve_step, prefill
-    S0 = prompt.shape[1]
-    logits, caches = prefill(model, cfg, {"tokens": prompt})
-    caches = serve.grow_caches(caches, S0 + steps + 1)
+    logits, caches = prefill(model, cfg, dict(frontend or {},
+                                              tokens=prompt))
+    start = caches["index"]
+    caches = serve.grow_caches(caches, start + steps + 1)
     step = make_serve_step(cfg)
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-    logits, caches = step(model, tok, caches, S0)
+    logits, caches = step(model, tok, caches, start)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for t in range(1, steps + 1):
             tok = torch.argmax(logits, dim=-1)[:, None]
-            logits, caches = step(model, tok, caches, S0 + t)
+            logits, caches = step(model, tok, caches, start + t)
             torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / steps
     spans = sorted((e.time_range.start, e.time_range.end)
@@ -4539,44 +4605,110 @@ PUBLISHED_18 = {
 }
 TAGS_18 = {"granite-moe-1b-a400m": "18a", "zamba2-2.7b": "18b",
            "rwkv6-1.6b": "18c"}
-# the f32 cuts: the same widths, 4 layers (Zamba2 6: five Mamba2 layers
-# and one shared-attention invocation)
-CUT_LAYERS_18 = {"granite-moe-1b-a400m": 4, "zamba2-2.7b": 6,
-                 "rwkv6-1.6b": 4}
+
+# phase 19: the published configs of the encoder-decoder, the vision
+# prefix and MLA; each family's own widths: Whisper's encoder layers,
+# frames, MLP and tied embeddings; InternVL's patches, their width, the
+# QKV bias, RoPE's theta and tied embeddings; DeepSeek-V3's MLA ranks and
+# head widths, experts, top-k, expert d_ff, shared experts and their d_ff,
+# capacity factor, dense layers, MTP depth and tied embeddings
+PUBLISHED_19 = {
+    "whisper-base": (6, 512, 8, 8, 64, 2048, 51865, "float32", "bfloat16",
+                     ("encdec", 6, 1500, "gelu", True)),
+    "internvl2-1b": (24, 896, 14, 2, 64, 4864, 151655, "bfloat16",
+                     "bfloat16", ("vision_stub", 256, 1024, True, 1e6,
+                                  True)),
+    "deepseek-v3-671b": (61, 7168, 128, 128, 128, 18432, 129280, "bfloat16",
+                         "bfloat16", ("mla", 1536, 512, 64, 128, 256, 8,
+                                      2048, 1, 2048, 1.25, 3, 1, False)),
+}
+TAGS_19 = {"whisper-base": "19a", "internvl2-1b": "19b",
+           "deepseek-v3-671b": "19c"}
+TAGS = {**TAGS_18, **TAGS_19}
+PUBLISHED = {**PUBLISHED_18, **PUBLISHED_19}
+# the depth the card runs where the published config does not fit it:
+# DeepSeek-V3's widths with its 3 dense layers and 2 MoE layers (of 61)
+DEPTH_19 = {"deepseek-v3-671b": {"num_layers": 5}}
+# the float32 checks at the published widths: 4 layers (Zamba2 6: five
+# Mamba2 layers and one shared-attention invocation); Whisper whole;
+# DeepSeek-V3 one dense and one MoE layer with MTP (58.5 GB), run in a
+# process of its own once the bf16 model's is gone
+CUTS = {"granite-moe-1b-a400m": {"num_layers": 4},
+        "zamba2-2.7b": {"num_layers": 6}, "rwkv6-1.6b": {"num_layers": 4},
+        "whisper-base": {}, "internvl2-1b": {"num_layers": 4},
+        "deepseek-v3-671b": {"num_layers": 2, "first_dense_layers": 1}}
+CUT_APART = ("deepseek-v3-671b",)
 
 
-def family_18(cfg) -> str:
+def family(cfg) -> str:
+    if cfg.attention == "mla":
+        return "mla"
+    if cfg.encoder_layers:
+        return "encdec"
+    if cfg.frontend == "vision_stub":
+        return "vision"
     return "moe" if cfg.moe is not None else cfg.block_kind
 
 
-def roundings_18(cfg) -> int:
+def roundings(cfg) -> int:
     """bf16 roundings on a layer's path from input to output (phase 17's
-    16 for a dense attention layer).  MoE: the attention half's 10 (norm,
-    q/k/v projection, RoPE, scores, probabilities, AV, output projection,
-    residual), then the norm, the experts' two projections, their silu,
-    product and output projection, the combine's k gate products and k
-    adds, the residual: 16 + 2k.  Mamba2: the norm, in_proj, the conv's K
-    products and K adds, its bias and silu, the SSD output's cast from
-    f32, silu(z) and the gate product, the gated norm (2), out_proj, the
-    residual: 11 + 2K.  RWKV6: the norm, a lerp (3), a projection, the WKV
-    output's cast from f32, ln_x (2), the gate product, wo, the residual;
-    the channel mix's norm, lerp (3), key projection, squared relu, value
-    projection, sigmoid product, residual: 22."""
-    fam = family_18(cfg)
+    16 for a dense attention layer; InternVL's layers are such, its
+    patches' projection one rounding more at the input).  MoE: the
+    attention half's 10 (norm, q/k/v projection, RoPE, scores,
+    probabilities, AV, output projection, residual), then the norm, the
+    experts' two projections, their silu, product and output projection,
+    the combine's k gate products and k adds, the residual: 16 + 2k.
+    Mamba2: the norm, in_proj, the conv's K products and K adds, its bias
+    and silu, the SSD output's cast from f32, silu(z) and the gate
+    product, the gated norm (2), out_proj, the residual: 11 + 2K.  RWKV6:
+    the norm, a lerp (3), a projection, the WKV output's cast from f32,
+    ln_x (2), the gate product, wo, the residual; the channel mix's norm,
+    lerp (3), key projection, squared relu, value projection, sigmoid
+    product, residual: 22.  Whisper's decoder layer: the self-attention
+    half's 10; the cross-attention's norm, the k/v projection of the
+    encoder's output, the q projection, scores, probabilities, AV, output
+    projection and residual (8); the GELU MLP's norm, two projections,
+    GELU and residual (5): 23 (its encoder layers, 15 each, count among
+    the layers).  DeepSeek-V3's MoE layer: MLA's norm, q down-projection,
+    q norm, q up-projection, RoPE of q, the latent projection, its norm,
+    RoPE of k_rope, the absorbed query (q·W_uk), scores, probabilities,
+    the latent AV, W_uv, the output projection and residual (15); the
+    MoE's norm, the experts' five (two projections, silu, product, output
+    projection), the combine's k gate products and k adds, the shared
+    expert's five and its add, the residual (12 + 2k): 27 + 2k (its dense
+    layers round less)."""
+    fam = family(cfg)
     if fam == "moe":
         return 16 + 2 * cfg.moe.top_k
     if fam == "mamba2":
         return 11 + 2 * cfg.ssm.conv_width
+    if fam == "encdec":
+        return 23
+    if fam == "vision":
+        return 16
+    if fam == "mla":
+        return 27 + 2 * cfg.moe.top_k
     return 22
 
 
-def shape_18(cfg) -> tuple:
-    fam, m, s = family_18(cfg), cfg.moe, cfg.ssm
+def shape_of(cfg) -> tuple:
+    fam, m, s = family(cfg), cfg.moe, cfg.ssm
     if fam == "moe":
         own = ("moe", m.num_experts, m.top_k, m.d_ff, m.capacity_factor)
     elif fam == "mamba2":
         own = ("mamba2", s.num_heads, s.head_dim, s.state_dim, s.conv_width,
                s.chunk, s.expand, cfg.shared_attn_every)
+    elif fam == "encdec":
+        own = ("encdec", cfg.encoder_layers, cfg.encoder_seq, cfg.mlp,
+               cfg.tie_embeddings)
+    elif fam == "vision":
+        own = ("vision_stub", cfg.frontend_seq, cfg.frontend_dim,
+               cfg.qkv_bias, cfg.rope_theta, cfg.tie_embeddings)
+    elif fam == "mla":
+        own = ("mla", cfg.q_lora_rank, cfg.kv_lora_rank, cfg.rope_head_dim,
+               cfg.v_head_dim, m.num_experts, m.top_k, m.d_ff,
+               m.num_shared_experts, m.shared_d_ff, m.capacity_factor,
+               cfg.first_dense_layers, cfg.mtp_depth, cfg.tie_embeddings)
     else:
         own = ("rwkv6", cfg.d_model // 64, 64)
     return (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
@@ -4584,24 +4716,37 @@ def shape_18(cfg) -> tuple:
             cfg.dtype, own)
 
 
-def params_18(cfg) -> int:
+def param_count(cfg) -> int:
     """Parameters of the port's model: ``param_counts``' matmul weights
     and embeddings plus what it leaves out — the norms' scales; Mamba2's
     conv bias, ``A_log``, ``D``, ``dt_bias`` and gated norm (it counts
-    3·d_in for them); RWKV6's lerp weights, ``w0``, ``u`` and norms."""
+    3·d_in for them); RWKV6's lerp weights, ``w0``, ``u`` and norms;
+    InternVL's QKV biases and ``frontend_proj``; MLA's q and latent
+    norms."""
     d, kinds = cfg.d_model, cfg.layer_kinds()
+    L = cfg.num_layers
     extra = d                                              # final_norm
-    fam = family_18(cfg)
+    fam = family(cfg)
     if fam == "moe":
-        extra += 2 * d * cfg.num_layers                    # ln1, ln2
+        extra += 2 * d * L                                 # ln1, ln2
     elif fam == "mamba2":
         s = cfg.ssm
         d_in = s.expand * d
         H = s.num_heads or d_in // s.head_dim
         extra += kinds.count("mamba2") * (2 * s.state_dim + 3 * H + d - d_in)
         extra += 2 * d                                     # the shared block
+    elif fam == "encdec":
+        # ln1, ln_cross, ln2; the encoder's ln1, ln2 and final_norm
+        extra += 3 * d * L + 2 * d * cfg.encoder_layers + d
+    elif fam == "vision":
+        extra += L * (2 * d + (cfg.num_heads + 2 * cfg.num_kv_heads)
+                      * cfg.head_dim) + cfg.frontend_dim * d
+    elif fam == "mla":
+        # ln1, ln2, qnorm, kvnorm a layer and in the MTP block; mtp.norm
+        per = 2 * d + cfg.q_lora_rank + cfg.kv_lora_rank
+        extra += (L + cfg.mtp_depth) * per + cfg.mtp_depth * d
     else:
-        extra += 12 * d * cfg.num_layers
+        extra += 12 * d * L
     return cfg.param_counts()[0] + extra
 
 
@@ -4706,32 +4851,38 @@ def routing_agreement(dec_probe, tf_probe, lanes: int) -> dict:
             "max_margin_apart": worst}
 
 
-def serve_arch(arch: str, seed: int, dev: str = "cuda") -> tuple:
-    """18a-c, one arch: its published config in bf16, nothing cut, weights
+def serve_arch(arch: str, seed: int, dev: str = "cuda",
+               with_cut: bool = True) -> tuple:
+    """18a-c and 19a-c, one arch: its published config in bf16 (DeepSeek-V3
+    at its published widths, its depth cut to ``DEPTH_19``'s), weights
     from the seed: the published shape and the parameter count; 4 lanes,
-    an 8-token prompt and 32 greedy steps through
+    an 8-token prompt (after the frontend's frames or patches, drawn from
+    the seed) and 32 greedy steps through
     ``repro_torch.launch.serve.generate``, timed (decode ms a step with
     spread, tokens/s, prefill ms, the step's bound and share, weight and
     peak GB, ``decode_profile``); decode ≡ teacher forcing within bf16's
-    rounding; a 4-6-layer cut of the same widths in float32 at 5e-4.  For
-    an MoE arch the checks run at capacity factor E/k, where nothing is
-    dropped (the same weights: the factor draws nothing), and the
-    published run reports the share of token-choices dropped a step."""
+    rounding; with ``with_cut``, ``f32_cut``.  For an MoE arch the checks
+    run at capacity factor E/k, where nothing is dropped (the same
+    weights: the factor draws nothing), and the published run reports the
+    share of token-choices dropped a step."""
     import dataclasses
     import gc
 
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import init_params
-    tag = TAGS_18[arch]
+    tag = TAGS[arch]
     gc.collect()
     torch.cuda.empty_cache()
     mem_start = torch.cuda.memory_allocated() / 1e9
     serve.set_matmul_precision()
     cfg = get_config(arch)
-    fam = family_18(cfg)
-    check(shape_18(cfg) == PUBLISHED_18[arch],
-          f"{tag}: the published shape, {shape_18(cfg)}")
+    fam = family(cfg)
+    check(shape_of(cfg) == PUBLISHED[arch],
+          f"{tag}: the published shape, {shape_of(cfg)}")
+    depth = DEPTH_19.get(arch, {})
+    reduced = {k: f"{getattr(cfg, k)} -> {v}" for k, v in depth.items()}
+    cfg = dataclasses.replace(cfg, **depth)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model, _ = init_params(cfg, seed, dev)
@@ -4740,21 +4891,25 @@ def serve_arch(arch: str, seed: int, dev: str = "cuda") -> tuple:
     n_params = sum(p.numel() for p in model.parameters())
     param_bytes = sum(p.numel() * p.element_size()
                       for p in model.parameters())
-    check(n_params == params_18(cfg), f"{tag}: {n_params} parameters, "
-          f"{params_18(cfg)} expected")
+    check(n_params == param_count(cfg), f"{tag}: {n_params} parameters, "
+          f"{param_count(cfg)} expected")
     peak_init = torch.cuda.max_memory_allocated() / 1e9
     prompt = serve.make_prompt(cfg, SERVE_LANES, SERVE_PROMPT, dev,
                                seed=seed + 1)
-    res = {"arch": arch, "family": fam, "shape": shape_18(cfg),
-           "lanes": SERVE_LANES, "prompt": SERVE_PROMPT,
+    frontend = serve.make_frontend(cfg, SERVE_LANES, dev, seed=seed + 2)
+    res = {"arch": arch, "family": fam, "shape": shape_of(cfg),
+           "reduced": reduced, "lanes": SERVE_LANES, "prompt": SERVE_PROMPT,
+           "frontend": {k: list(v.shape) for k, v in frontend.items()},
            "tokens": SERVE_TOKENS, "params": n_params,
            "param_GB": param_bytes / 1e9, "init_s": init_s,
            "mem_at_start_GB": mem_start, "peak_mem_GB_init": peak_init}
 
     # the published run, watched: the routing of each step (MoE), and the
     # warm-up of the timed run
-    probe = MoEProbe(model) if fam == "moe" else None
-    watched = serve.generate(model, cfg, prompt, SERVE_TOKENS)
+    moe_arch = cfg.moe is not None
+    probe = MoEProbe(model) if moe_arch else None
+    watched = serve.generate(model, cfg, prompt, SERVE_TOKENS,
+                             frontend=frontend)
     routing = None
     if probe is not None:
         probe.remove()
@@ -4773,12 +4928,14 @@ def serve_arch(arch: str, seed: int, dev: str = "cuda") -> tuple:
         del probe
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    run = serve.generate(model, cfg, prompt, SERVE_TOKENS)
+    run = serve.generate(model, cfg, prompt, SERVE_TOKENS,
+                         frontend=frontend)
     peak_run = torch.cuda.max_memory_allocated() / 1e9
     step_ms = [1e3 * s for s in run.step_s]
-    prof = decode_profile(model, cfg, prompt)
+    prof = decode_profile(model, cfg, prompt, frontend=frontend)
     med = float(np.median(step_ms))
-    bounds = [decode_bound(model, cfg, SERVE_LANES, SERVE_PROMPT + t,
+    start = run.prefix + SERVE_PROMPT
+    bounds = [decode_bound(model, cfg, SERVE_LANES, start + t,
                            None if routing is None else routing[1 + t])
               for t in range(SERVE_TOKENS)]
     b_bytes = float(np.mean([b[0] for b in bounds]))
@@ -4786,6 +4943,7 @@ def serve_arch(arch: str, seed: int, dev: str = "cuda") -> tuple:
     bound_ms = 1e3 * max(b_bytes, b_ops)
     res.update({
         "peak_mem_GB_decode": peak_run,
+        "prefill_positions": start,
         "prefill_ms": 1e3 * run.prefill_s,
         "prefill_ms_first_run": 1e3 * watched.prefill_s,
         "decode_ms_per_step_median": med,
@@ -4803,24 +4961,23 @@ def serve_arch(arch: str, seed: int, dev: str = "cuda") -> tuple:
     del watched
 
     # decode ≡ teacher forcing in bf16 (MoE: at capacity factor E/k)
-    tf_cfg = cfg
-    if fam == "moe":
-        tf_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    tf_cfg = capacity_free(cfg)
+    if moe_arch:
         del model
         gc.collect()
         torch.cuda.empty_cache()
         model, _ = init_params(tf_cfg, seed, dev)
-    dec_probe = MoEProbe(model) if fam == "moe" else None
+    dec_probe = MoEProbe(model) if moe_arch else None
     checked = serve.generate(model, tf_cfg, prompt, SERVE_TOKENS,
-                             keep_logits=True)
+                             frontend=frontend, keep_logits=True)
     if dec_probe is not None:
         dec_probe.remove()
         tf_probe = MoEProbe(model)
     tf = teacher_forcing_err(model, tf_cfg, checked, tag)
-    n = roundings_18(cfg)
-    tol = (math.sqrt(n * cfg.num_layers) * BF16_UNIT * tf["logit_max_abs"])
-    rule = f"sqrt({n} * layers) * 2^-8 * max |logit|"
+    n = roundings(cfg)
+    layers = cfg.num_layers + cfg.encoder_layers
+    tol = math.sqrt(n * layers) * BF16_UNIT * tf["logit_max_abs"]
+    rule = (f"sqrt({n} * {layers} layers) * 2^-8 * max |logit|")
     held = tf
     if dec_probe is not None:
         # MoE: routing compared first; the tolerance holds with decode's
@@ -4838,37 +4995,95 @@ def serve_arch(arch: str, seed: int, dev: str = "cuda") -> tuple:
           f"forcing: max |Δ| {held['max_abs_err']} > {tol}")
     res["teacher_forcing"] = dict(
         tf, tolerance=tol, capacity_factor=(
-            tf_cfg.moe.capacity_factor if fam == "moe" else None),
+            tf_cfg.moe.capacity_factor if moe_arch else None),
         tolerance_rule=rule)
     del model, checked
     gc.collect()
     torch.cuda.empty_cache()
+    if with_cut:
+        res["cut"] = f32_cut(arch, seed, dev)
+    return res, run
 
-    # the same widths, cut in depth, in float32
-    layers = CUT_LAYERS_18[arch]
-    cut = dataclasses.replace(tf_cfg, num_layers=layers, dtype="float32",
-                              param_dtype="float32")
+
+def capacity_free(cfg):
+    """``cfg`` at capacity factor E/k for an MoE config (no token-choice
+    dropped), else ``cfg``."""
+    import dataclasses
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+
+
+def f32_cut(arch: str, seed: int, dev: str = "cuda") -> dict:
+    """The arch's float32 check at its published widths (``CUTS``: cut in
+    depth, or whole), MoE at capacity factor E/k: 32 greedy steps from
+    ``serve_arch``'s prompt and frontend input, decode ≡ teacher forcing
+    at 5e-4; for MLA the same decode in the expanded form ≡ the absorbed
+    one at 5e-4."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import MLA, init_params
+    tag = TAGS[arch]
+    serve.set_matmul_precision()
+    cfg = dataclasses.replace(get_config(arch), **DEPTH_19.get(arch, {}))
+    cut = dataclasses.replace(capacity_free(cfg), dtype="float32",
+                              param_dtype="float32", **CUTS[arch])
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     model, _ = init_params(cut, seed, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
     cut_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    prompt = serve.make_prompt(cut, SERVE_LANES, SERVE_PROMPT, dev,
+                               seed=seed + 1)
+    frontend = serve.make_frontend(cut, SERVE_LANES, dev, seed=seed + 2)
     cut_run = serve.generate(model, cut, prompt, SERVE_TOKENS,
-                             keep_logits=True)
+                             frontend=frontend, keep_logits=True)
     cut_tf = teacher_forcing_err(model, cut, cut_run, tag)
     check(cut_tf["max_abs_err"] < F32_DECODE_TOL, f"{tag} cut: float32 "
           f"decode ≡ teacher forcing: {cut_tf['max_abs_err']} ≥ "
           f"{F32_DECODE_TOL}")
-    res["cut"] = {
-        "case": f"the {layers}-layer cut of the published widths, float32",
-        "layers": layers, "segments": cut.segments(),
-        "param_GB": cut_bytes / 1e9,
-        "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
+    out = {
+        "case": (f"the published widths, {cut.num_layers} layers, float32"
+                 if CUTS[arch] else "the published config, float32"),
+        "layers": cut.num_layers, "segments": cut.segments(),
+        "mtp_depth": cut.mtp_depth, "param_GB": cut_bytes / 1e9,
+        "init_s": init_s,
         "decode_ms_per_step_median": float(np.median(
             [1e3 * s for s in cut_run.step_s])),
         "teacher_forcing": dict(cut_tf, tolerance=F32_DECODE_TOL)}
+    if cut.attention == "mla":
+        mixers = [m for m in model.modules() if isinstance(m, MLA)]
+        for m in mixers:
+            m.absorbed = False
+        expanded = serve.generate(model, cut, prompt, SERVE_TOKENS,
+                                  frontend=frontend, keep_logits=True)
+        for m in mixers:
+            m.absorbed = True
+        err = max(float((a.float() - b.float()).abs().max()) for a, b in
+                  zip(cut_run.step_logits, expanded.step_logits))
+        check(err < F32_DECODE_TOL, f"{tag} cut: expanded MLA decode ≡ "
+              f"absorbed: {err} ≥ {F32_DECODE_TOL}")
+        out["absorbed_vs_expanded"] = {
+            "max_abs_err": err, "tolerance": F32_DECODE_TOL,
+            "tokens_equal": bool(np.array_equal(cut_run.tokens,
+                                                expanded.tokens)),
+            "expanded_decode_ms_per_step_median": float(np.median(
+                [1e3 * s for s in expanded.step_s])),
+            "expanded_teacher_forcing_max_abs_err": teacher_forcing_err(
+                model, cut, expanded, tag)["max_abs_err"]}
+        del expanded
+    out["peak_mem_GB"] = torch.cuda.max_memory_allocated() / 1e9
     del model, cut_run
     gc.collect()
     torch.cuda.empty_cache()
-    return res, run
+    return out
 
 
 def serve18_subprocess(work: Path) -> dict:
@@ -4902,7 +5117,7 @@ def phase_serve_families(seed: int, smi: str) -> dict:
         for arch in TAGS_18:
             t0 = time.perf_counter()
             res, run = serve_arch(arch, seed)
-            tag = TAGS_18[arch]
+            tag = TAGS[arch]
             guards[arch] = phase_serve_guard(run, work, tag=tag)
             guards[arch]["decode_ms_per_step_median"] = res[
                 "decode_ms_per_step_median"]
@@ -4922,6 +5137,95 @@ def phase_serve_families(seed: int, smi: str) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the encoder-decoder, vision-prefix and MLA serve paths at their
+# published widths, each in a process of its own, and the guard over each
+# one's token stream
+# ---------------------------------------------------------------------------
+
+
+def serve_worker_run(arch: str, part: str, seed: int) -> dict:
+    """A phase-19 subprocess's work: ``run`` is ``serve_arch`` (its f32
+    check too, unless the arch's is ``CUT_APART``) with the decode's
+    tokens and log-probabilities for the guard; ``cut`` is ``f32_cut``
+    alone.  Reports the card's free memory at its start."""
+    free, total = torch.cuda.mem_get_info()
+    out = {"arch": arch, "part": part, "free_GB_at_start": free / 1e9,
+           "total_GB": total / 1e9}
+    if part == "cut":
+        out["cut"] = f32_cut(arch, seed)
+        return out
+    res, run = serve_arch(arch, seed, with_cut=arch not in CUT_APART)
+    out.update(res, run={"tokens": run.tokens.tolist(),
+                         "logp": run.logp.tolist()})
+    return out
+
+
+def serve_worker(arch: str, part: str, seed: int) -> dict:
+    """``chip_smoke.py --serve-worker ARCH --serve-part PART`` as a
+    subprocess on the card: its exit code 0 and its last line's JSON."""
+    cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--serve-worker",
+           arch, "--serve-part", part, "--seed", str(seed)]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, text=True, capture_output=True,
+                         timeout=600)
+    tag = TAGS[arch]
+    check(out.returncode == 0, f"{tag} {part}: the worker exited "
+          f"{out.returncode}: {out.stderr[-3000:]}")
+    lines = out.stdout.strip().splitlines()
+    check(bool(lines), f"{tag} {part}: the worker printed nothing")
+    res = json.loads(lines[-1])
+    res["process_s"] = time.perf_counter() - t0
+    return res
+
+
+def phase_serve_more(seed: int, smi: str) -> dict:
+    """Phase 19: Whisper-base (19a) and InternVL2-1B (19b) at their
+    published configs, DeepSeek-V3 (19c) at its published widths with 5
+    of its 61 layers, each in a process of its own so that the card's
+    memory is freed between them (DeepSeek-V3's f32 check in one more);
+    then the guard over each one's token stream on the card ≡ the CPU ≡
+    the host."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved() / 1e9
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_serve19_",
+                                 dir=ROOT / "build"))
+    archs, guards, secs = {}, {}, {}
+    try:
+        for arch, tag in TAGS_19.items():
+            t0 = time.perf_counter()
+            res = serve_worker(arch, "run", seed)
+            if arch in CUT_APART:
+                cut = serve_worker(arch, "cut", seed)
+                res["cut"] = dict(cut["cut"], process_s=cut["process_s"],
+                                  free_GB_at_start=cut["free_GB_at_start"])
+            t1 = time.perf_counter()
+            steps = res.pop("run")
+            run = SimpleNamespace(tokens=np.array(steps["tokens"]),
+                                  logp=np.array(steps["logp"], np.float32))
+            check(run.tokens.shape == run.logp.shape == (
+                SERVE_LANES, SERVE_TOKENS), f"{tag}: the decode's tokens")
+            guards[arch] = phase_serve_guard(run, work, tag=tag)
+            guards[arch]["decode_ms_per_step_median"] = res[
+                "decode_ms_per_step_median"]
+            archs[arch] = res
+            secs[tag] = {"model": t1 - t0,
+                         "guard": time.perf_counter() - t1}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    result = {"phase": 19, "case": "the encoder-decoder, vision-prefix and "
+              "MLA serve paths at their published widths, bf16, and their "
+              "token streams' guards", "nvidia_smi": smi,
+              "reduced": archs["deepseek-v3-671b"]["reduced"],
+              "parent_reserved_GB": held, "models": archs,
+              "guards": guards, "seconds": secs}
+    emit(result)
+    return result
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4935,6 +5239,11 @@ def main() -> None:
     # phase 15c's subprocess: one fleet crash-recovery run over a directory
     parser.add_argument("--fleet-worker", metavar="DIR",
                         help=argparse.SUPPRESS)
+    # phase 19's subprocesses: one arch's serve run, or its f32 check
+    parser.add_argument("--serve-worker", metavar="ARCH",
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--serve-part", choices=("run", "cut"),
+                        default="run", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not (ROOT / "src" / "repro_torch").is_dir():
         sys.exit("chip_smoke.py runs from a checkout of the repository: "
@@ -4949,6 +5258,9 @@ def main() -> None:
                if args.fleet_worker else service_kill_run)
         emit(run(args.crash_worker or args.service_worker
                  or args.fleet_worker, args.crash_after, args.seed))
+        return
+    if args.serve_worker:
+        emit(serve_worker_run(args.serve_worker, args.serve_part, args.seed))
         return
 
     t_main = time.perf_counter()
@@ -4987,6 +5299,8 @@ def main() -> None:
     guard17 = serve_res["guard"]
     fam_res = phase("18 serve families", phase_serve_families, seed, smi)
     guards18 = list(fam_res["guards"].values())
+    more_res = phase("19 serve, more families", phase_serve_more, seed, smi)
+    guards19 = list(more_res["guards"].values())
     emit({"phase_seconds": spans,
           "total_s": time.perf_counter() - t_main})
     unf = unf_res["kernels"]
@@ -5000,11 +5314,12 @@ def main() -> None:
         "launches": main_res["launches"],
         "max_abs_err": max([main_res["max_abs_err"], fleet15_err,
                             guard17["fused_scan_max_abs_err"]]
-                           + [g["fused_scan_max_abs_err"] for g in guards18]),
+                           + [g["fused_scan_max_abs_err"]
+                              for g in guards18 + guards19]),
         "max_abs_diff": max([main_res["max_abs_err"], fleet15_err,
                              guard17["fused_scan_max_abs_err"]]
                             + [g["fused_scan_max_abs_err"]
-                               for g in guards18]),
+                               for g in guards18 + guards19]),
         "ms": main_res["kernel_ms_per_chunk"],
         "plain_ms": main_res["plain_ms_per_chunk"],
         "bound_ms": main_res["bound_ms"],
@@ -5033,6 +5348,13 @@ def main() -> None:
         "phase18_ms": [g["fused_scan_ms"] for g in guards18],
         "phase18_plain_ms": [g["fused_scan_plain_ms"] for g in guards18],
         "phase18_bound_ms": [g["fused_scan_bound_ms"] for g in guards18],
+        "phase19_launches": sum(g["launches"]["fused_scan"]
+                                for g in guards19),
+        "phase19_ms": [g["fused_scan_ms"] for g in guards19],
+        "phase19_plain_ms": [g["fused_scan_plain_ms"] for g in guards19],
+        "phase19_bound_ms": [g["fused_scan_bound_ms"] for g in guards19],
+        "phase19_max_abs_err": max(g["fused_scan_max_abs_err"]
+                                   for g in guards19),
         "phase15_buckets": {k: {x: v[x] for x in (
             "S", "NQ", "k", "state_bucket", "n_split", "kernel_ms",
             "plain_ms", "bound_ms", "bound_by")}
@@ -5107,7 +5429,8 @@ def main() -> None:
         "max_abs_err": max([part_res["lane_route_max_abs_err"],
                             exact_res["lane_route_max_abs_err"],
                             guard17["lane_route_max_abs_err"]]
-                           + [g["lane_route_max_abs_err"] for g in guards18]),
+                           + [g["lane_route_max_abs_err"]
+                              for g in guards18 + guards19]),
         "ms": part_res["lane_route_ms"],
         "plain_ms": part_res["lane_route_plain_ms"],
         "bound_ms": part_res["lane_route_bound_ms"],
@@ -5127,7 +5450,14 @@ def main() -> None:
                                 for g in guards18),
         "phase18_ms": [g["lane_route_ms"] for g in guards18],
         "phase18_plain_ms": [g["lane_route_plain_ms"] for g in guards18],
-        "phase18_bound_ms": [g["lane_route_bound_ms"] for g in guards18]}]})
+        "phase18_bound_ms": [g["lane_route_bound_ms"] for g in guards18],
+        "phase19_launches": sum(g["launches"]["lane_route"]
+                                for g in guards19),
+        "phase19_ms": [g["lane_route_ms"] for g in guards19],
+        "phase19_plain_ms": [g["lane_route_plain_ms"] for g in guards19],
+        "phase19_bound_ms": [g["lane_route_bound_ms"] for g in guards19],
+        "phase19_max_abs_err": max(g["lane_route_max_abs_err"]
+                                   for g in guards19)}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -5,18 +5,23 @@ reference's ``launch/serve.py`` on PyTorch.
         [--tokens 32] [--lanes 4] [--prompt-len 8] [--guard "SELECT ..."]
         [--service [--service-dir DIR]] [--device cpu]
 
-Prefill builds the lanes' caches at the prompt's length, which grow to the
-prompt plus ``--tokens``; the decode loop emits one CER event per (lane,
-token) into the guard, a CEQL query ``PARTITION BY [lane]``; its matches
-surface as guardrail hits beside the generated tokens.
+Prefill builds the lanes' caches at the prompt's length (after InternVL's
+patches, which the prefix holds), which grow by ``--tokens``; Whisper's
+prefill also runs the encoder over the frames and keeps each decoder
+layer's ``cross_kv``.  The frames (B, 1500, 512) or patches (B, 256, 1024)
+stand in for the audio and vision frontends and are drawn from a seeded
+generator.  The decode loop emits one CER event per (lane, token) into the
+guard, a CEQL query ``PARTITION BY [lane]``; its matches surface as
+guardrail hits beside the generated tokens.
 
 The model runs on the CUDA device unless ``--device cpu`` asks for the CPU,
 and raises without a card.  ``--smoke`` takes the arch's reduced config;
-without it the published config runs whole on one card (Qwen2.5-14B in
-bf16 holds 29.5 GB of weights; Granite-MoE-1B, Zamba2-2.7B and RWKV6-1.6B
-2.7-4.1 GB), with no mesh: one card needs no sharding.  The dense GQA,
-MoE (``granite-moe-1b-a400m``), Mamba2-hybrid (``zamba2-2.7b``) and RWKV6
-(``rwkv6-1.6b``) archs run; the others raise ``NotImplementedError``.
+without it the published config runs whole on one card, with no mesh
+(Qwen2.5-14B in bf16 holds 29.5 GB of weights; Granite-MoE-1B,
+Zamba2-2.7B and RWKV6-1.6B 2.7-4.1 GB; Whisper-base 0.29 GB in float32;
+InternVL2-1B 0.99 GB).  Every arch of the registry runs; DeepSeek-V3's
+published config (about 1.34 TB in bf16) does not fit one card and waits
+for the sharded path, so take it with ``--smoke``.
 
 Without ``--service`` the guard is the in-process host executor.  With it,
 the guard is the :class:`repro_torch.runtime.StreamService` over
@@ -91,6 +96,22 @@ def make_prompt(cfg: ModelConfig, lanes: int, prompt_len: int, device,
                          generator=gen, device=device)
 
 
+def make_frontend(cfg: ModelConfig, lanes: int, device, seed: int = 2
+                  ) -> dict:
+    """The frontend stub's input, float32 normal draws from ``seed`` on
+    ``device``: ``frames`` (lanes, encoder_seq, d_model) for an encoder
+    (Whisper), ``patches`` (lanes, frontend_seq, frontend_dim) for the
+    vision stub (InternVL), nothing otherwise."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if cfg.encoder_layers:
+        shape, key = (lanes, cfg.encoder_seq, cfg.d_model), "frames"
+    elif cfg.frontend == "vision_stub":
+        shape, key = (lanes, cfg.frontend_seq, cfg.frontend_dim), "patches"
+    else:
+        return {}
+    return {key: torch.randn(shape, generator=gen, device=device)}
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -99,10 +120,12 @@ def _sync(device: torch.device) -> None:
 @dataclass
 class DecodeRun:
     """One greedy decode: ``fed`` (B, S0 + n) the prompt and every token fed
-    to a decode step; ``tokens`` and ``logp`` (B, n) the generated tokens
-    and their log-probabilities; ``step_logits`` the steps' logits when
-    kept; host seconds of the prefill and of each step, each ending in a
-    device synchronize."""
+    to a decode step; ``frontend`` the frames or patches given with the
+    prompt; ``prefix`` the positions they took before the prompt (InternVL's
+    patches); ``tokens`` and ``logp`` (B, n) the generated tokens and their
+    log-probabilities; ``prefill_logits`` (B, prefix + S0, V);
+    ``step_logits`` the steps' logits when kept; host seconds of the
+    prefill and of each step, each ending in a device synchronize."""
     fed: torch.Tensor
     tokens: np.ndarray
     logp: np.ndarray
@@ -110,22 +133,28 @@ class DecodeRun:
     step_logits: Optional[List[torch.Tensor]]
     prefill_s: float
     step_s: List[float] = field(default_factory=list)
+    frontend: dict = field(default_factory=dict)
+    prefix: int = 0
 
 
 def generate(model, cfg: ModelConfig, prompt: torch.Tensor, n_tokens: int,
-             *, keep_logits: bool = False,
+             *, frontend: Optional[dict] = None, keep_logits: bool = False,
              on_step: Optional[Callable[[int, np.ndarray, np.ndarray], None]]
              = None) -> DecodeRun:
-    """Prefill ``prompt``, then ``n_tokens`` greedy decode steps.
-    ``on_step(t, tokens, logp)`` sees each step's (B,) tokens and their
-    log-probabilities as they come."""
+    """Prefill ``prompt`` with the ``frontend`` input (``make_frontend``'s
+    frames or patches), then ``n_tokens`` greedy decode steps, the first
+    at the prefix's length (prompt and patches).  ``on_step(t, tokens,
+    logp)`` sees each step's (B,) tokens and their log-probabilities as
+    they come."""
     device = prompt.device
-    B, S0 = prompt.shape
+    frontend = dict(frontend or {})
+    S0 = prompt.shape[1]
     serve_step = make_serve_step(cfg)
     _sync(device)
     t0 = time.perf_counter()
-    logits, caches = prefill(model, cfg, {"tokens": prompt})
-    caches = grow_caches(caches, S0 + n_tokens)
+    logits, caches = prefill(model, cfg, dict(frontend, tokens=prompt))
+    start = caches["index"]
+    caches = grow_caches(caches, start + n_tokens)
     _sync(device)
     prefill_s = time.perf_counter() - t0
     tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
@@ -133,7 +162,7 @@ def generate(model, cfg: ModelConfig, prompt: torch.Tensor, n_tokens: int,
     for t in range(n_tokens):
         fed.append(tok)
         t0 = time.perf_counter()
-        logits_t, caches = serve_step(model, tok, caches, S0 + t)
+        logits_t, caches = serve_step(model, tok, caches, start + t)
         _sync(device)
         step_s.append(time.perf_counter() - t0)
         logp = torch.log_softmax(logits_t.float(), dim=-1)
@@ -150,7 +179,7 @@ def generate(model, cfg: ModelConfig, prompt: torch.Tensor, n_tokens: int,
         fed=torch.cat(fed, dim=1), tokens=np.stack(toks, axis=1),
         logp=np.stack(logps, axis=1), prefill_logits=logits,
         step_logits=kept if keep_logits else None, prefill_s=prefill_s,
-        step_s=step_s)
+        step_s=step_s, frontend=frontend, prefix=start - S0)
 
 
 def make_guard_service(q, lanes: int, device, directory: str, sinks=()):
@@ -193,6 +222,7 @@ def main(argv=None) -> dict:
     model, _ = init_params(cfg, 0, device)
     B = args.lanes
     prompt = make_prompt(cfg, B, args.prompt_len, device)
+    frontend = make_frontend(cfg, B, device)
     q = compile_query(args.guard)
 
     svc = guard = None
@@ -217,7 +247,8 @@ def main(argv=None) -> dict:
             else:
                 fired += len(guard.process(Event("TOK", attrs)))
 
-    run = generate(model, cfg, prompt, args.tokens, on_step=on_step)
+    run = generate(model, cfg, prompt, args.tokens, frontend=frontend,
+                   on_step=on_step)
     out = {"events": events, "run": run}
     if svc is not None:
         svc.drain(pad=True)

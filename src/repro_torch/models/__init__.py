@@ -1,20 +1,23 @@
-"""The LM serve path on PyTorch: the reference's ``models`` package for the
-dense GQA, MoE, Mamba2 (with Zamba2's shared attention) and RWKV6
-families (config, layers, attention, MoE, SSD, WKV, the stack, the serve
-and prefill steps, and weights carried over from the reference)."""
+"""The LM serve path on PyTorch: the reference's ``models`` package for
+every arch of the registry — dense GQA, MoE, Mamba2 (with Zamba2's shared
+attention), RWKV6, the encoder-decoder (Whisper), the vision-stub prefix
+(InternVL) and MLA with MTP (DeepSeek-V3): config, layers, attention,
+MoE, SSD, WKV, the stack, the serve and prefill steps, and weights carried
+over from the reference."""
+from .attention import MLA, Attention
 from .config import (ATTN, MAMBA2, RWKV6, SHARED_ATTN, ModelConfig, MoEConfig,
                      SSMConfig)
 from .convert import params_from_jax
 from .moe import MoE, moe_apply
 from .rwkv import RWKV6 as RWKV6Mixer
 from .ssm import Mamba2, ssd_chunked, ssd_reference
-from .stack import (Block, MLP, Stack, channel_mix, decode_step,
-                    forward_train, init_params, prefill, unported_features)
+from .stack import (Block, Encoder, MLP, Stack, channel_mix, decode_step,
+                    forward_train, init_params, prefill)
 from .steps import init_decode_caches, make_prefill_step, make_serve_step
 
 __all__ = ["ATTN", "MAMBA2", "RWKV6", "SHARED_ATTN", "ModelConfig",
            "MoEConfig", "SSMConfig", "params_from_jax", "MoE", "moe_apply",
-           "RWKV6Mixer", "Mamba2", "ssd_chunked", "ssd_reference", "Block",
-           "MLP", "Stack", "channel_mix", "decode_step", "forward_train",
-           "init_params", "prefill", "unported_features",
+           "RWKV6Mixer", "Mamba2", "ssd_chunked", "ssd_reference", "MLA",
+           "Attention", "Block", "Encoder", "MLP", "Stack", "channel_mix",
+           "decode_step", "forward_train", "init_params", "prefill",
            "init_decode_caches", "make_prefill_step", "make_serve_step"]

@@ -1,23 +1,29 @@
-"""Attention: GQA (RoPE, qk-norm, qkv-bias), the reference's
-``models/attention.py`` on PyTorch.
+"""Attention: GQA (RoPE, qk-norm, qkv-bias), cross-attention (Whisper)
+and MLA (DeepSeek-V3), the reference's ``models/attention.py`` on PyTorch.
 
-Three entry points:
+Three entry points per variant:
 
-* ``gqa_train``   — full-sequence causal (or bidirectional) attention, an
+* ``*_train``   — full-sequence causal (or bidirectional) attention, an
   online softmax over KV chunks (a Python loop over chunks), so the score
   matrix is never fully materialized for long sequences;
-* ``gqa_prefill`` — the train-path forward that also returns the KV cache;
-* ``gqa_decode``  — one query token against a KV cache, written in place.
+* ``*_prefill`` — the train-path forward that also returns the KV cache;
+* ``*_decode``  — one query token against a KV cache, written in place.
 
-Plain PyTorch ops only (``torch.einsum``, ``softmax``).  MLA (DeepSeek-V3)
-and cross-attention (Whisper) belong to a later slice of the port
-(ROADMAP Queue 1 item 9); their entry points raise ``NotImplementedError``.
+Cross-attention (``gqa_cross``) attends, without RoPE and without a causal
+mask, to keys and values that ``cross_kv`` projects once from the
+encoder's output.  MLA caches only the compressed latent (``c_kv``, after
+its norm, and the shared ``k_rope``, after RoPE); its decode either folds
+``W_uk`` into the query and attends in latent space (``absorbed=True``,
+the reference's default) or expands the latent to per-head K/V.
+
+Plain PyTorch ops only (``torch.einsum``, ``softmax``).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 from .config import ModelConfig
 from .layers import (ParamTree, apply_rope, dense, dense_init, rmsnorm,
@@ -25,9 +31,6 @@ from .layers import (ParamTree, apply_rope, dense, dense_init, rmsnorm,
 
 ATTN_CHUNK_Q = 1024  # query chunk for online-softmax attention
 ATTN_CHUNK_K = 2048  # KV chunk
-
-LATER_SLICE = ("ROADMAP Queue 1 item 9 (the other mixer families) ports "
-               "MLA and cross-attention")
 
 
 def set_chunk_sizes(q: int, k: int) -> None:
@@ -195,22 +198,180 @@ class Attention(ParamTree):
         return gqa_decode(self, self.cfg, x, cache, index)
 
 
+def gqa_cross(p, cfg: ModelConfig, x, enc_kv):
+    """Cross-attention against precomputed encoder K/V (Whisper's
+    decoder): queries from ``wq``, no RoPE, no mask."""
+    B, S, _ = x.shape
+    h, hd = cfg.num_heads, cfg.head_dim
+    q = dense(p["wq"], x).reshape(B, S, h, hd)
+    out = _sdpa(q, enc_kv["k"], enc_kv["v"], causal=False)
+    out = out.reshape(B, S, h * hd)
+    return dense(p["wo"], out)
+
+
+def cross_kv(p, cfg: ModelConfig, enc_out):
+    """The encoder output's keys and values (B, S_enc, KV, D), no RoPE."""
+    B, S, _ = enc_out.shape
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    k = dense(p["wk"], enc_out).reshape(B, S, kv, hd)
+    v = dense(p["wv"], enc_out).reshape(B, S, kv, hd)
+    return {"k": k, "v": v}
+
+
 # ---------------------------------------------------------------------------
-# later slice: cross-attention (whisper) and MLA (deepseek-v3)
+# MLA (multi-head latent attention, deepseek-v3)
 # ---------------------------------------------------------------------------
 
 
-def _later(name: str):
-    def refuse(*args, **kwargs):
-        raise NotImplementedError(f"{name} is not ported yet: {LATER_SLICE}")
-    refuse.__name__ = name
-    refuse.__doc__ = f"Not ported yet: {LATER_SLICE}."
-    return refuse
+def mla_init(gen, cfg: ModelConfig, dtype, device=None):
+    d, h = cfg.d_model, cfg.num_heads
+    hd, rd, vd = cfg.head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    p, a = {}, {}
+    p["wq_a"], a["wq_a"] = dense_init(gen, d, qr, None, None, dtype,
+                                      device=device)
+    p["qnorm"], a["qnorm"] = rmsnorm_init(qr, dtype, device)
+    p["wq_b"], a["wq_b"] = dense_init(gen, qr, h * (hd + rd), None, "heads",
+                                      dtype, device=device)
+    p["wkv_a"], a["wkv_a"] = dense_init(gen, d, kvr + rd, None, None, dtype,
+                                        device=device)
+    p["kvnorm"], a["kvnorm"] = rmsnorm_init(kvr, dtype, device)
+    p["wkv_b"], a["wkv_b"] = dense_init(gen, kvr, h * (hd + vd), None,
+                                        "heads", dtype, device=device)
+    p["wo"], a["wo"] = dense_init(gen, h * vd, d, "heads", None, dtype,
+                                  device=device)
+    return p, a
 
 
-gqa_cross = _later("gqa_cross")
-cross_kv = _later("cross_kv")
-mla_init = _later("mla_init")
-mla_train = _later("mla_train")
-mla_prefill = _later("mla_prefill")
-mla_decode = _later("mla_decode")
+def _mla_q(p, cfg, x, positions):
+    B, S, _ = x.shape
+    h, hd, rd = cfg.num_heads, cfg.head_dim, cfg.rope_head_dim
+    q = dense(p["wq_b"], rmsnorm(p["qnorm"], dense(p["wq_a"], x),
+                                 cfg.norm_eps))
+    q = q.reshape(B, S, h, hd + rd)
+    q_nope, q_rope = q[..., :hd], q[..., hd:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_latent(p, cfg, x, positions):
+    """(c_kv (B, S, kvr) after ``kvnorm``, k_rope (B, S, rd) after RoPE,
+    which takes it through a head axis of one)."""
+    kvr = cfg.kv_lora_rank
+    kv = dense(p["wkv_a"], x)                       # (B, S, kvr + rd)
+    c_kv = rmsnorm(p["kvnorm"], kv[..., :kvr], cfg.norm_eps)
+    k_rope = apply_rope(kv[..., kvr:][:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def _mla_expand(p, cfg, c_kv):
+    """Latent → per-head K(nope)/V. (B, S, kvr) → (B, S, H, hd)+(B, S, H, vd)."""
+    B, S, _ = c_kv.shape
+    h, hd, vd = cfg.num_heads, cfg.head_dim, cfg.v_head_dim
+    kvb = dense(p["wkv_b"], c_kv).reshape(B, S, h, hd + vd)
+    return kvb[..., :hd], kvb[..., hd:]
+
+
+def _mla_attend(cfg, q_nope, q_rope, k_nope, k_rope, v):
+    """Causal MLA attention through :func:`_sdpa` on concatenated heads:
+    q = [q_nope; q_rope], k = [k_nope; k_rope on every head], so the scale
+    is 1/√(hd + rd); v is zero-padded from vd to hd + rd and the result
+    sliced back to vd."""
+    B, Sq, H, hd = q_nope.shape
+    vd = v.shape[-1]
+    rd = q_rope.shape[-1]
+    k_rope_h = k_rope[:, :, None, :].expand(B, k_rope.shape[1], H, rd)
+    q_eff = torch.cat([q_nope, q_rope], dim=-1)
+    k_eff = torch.cat([k_nope, k_rope_h], dim=-1)
+    D_eff = hd + rd
+    v_pad = F.pad(v, [0, D_eff - vd]) if vd < D_eff else v
+    out = _sdpa(q_eff, k_eff, v_pad, causal=True)
+    return out[..., :vd]
+
+
+def _mla_forward(p, cfg: ModelConfig, x):
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :]
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c_kv, k_rope = _mla_latent(p, cfg, x, positions)
+    k_nope, v = _mla_expand(p, cfg, c_kv)
+    out = _mla_attend(cfg, q_nope, q_rope, k_nope, k_rope, v)
+    out = out.reshape(B, S, cfg.num_heads * cfg.v_head_dim)
+    return dense(p["wo"], out), {"c_kv": c_kv, "k_rope": k_rope}
+
+
+def mla_train(p, cfg: ModelConfig, x):
+    return _mla_forward(p, cfg, x)[0]
+
+
+def mla_prefill(p, cfg: ModelConfig, x):
+    """Returns (output, cache) — cache = the latent ``c_kv`` and
+    ``k_rope`` over the full prefix."""
+    return _mla_forward(p, cfg, x)
+
+
+def mla_decode(p, cfg: ModelConfig, x, cache, index: int, *,
+               absorbed: bool = True):
+    """MLA decode against the latent cache, written in place at ``index``.
+
+    ``absorbed=True`` folds ``W_uk`` into the query (score = (q W_uk) ·
+    c_kv) and attends in latent space, then applies ``W_uv``; ``False``
+    expands the whole cache to per-head K/V.  Both scale the scores by
+    1/√(hd + rd) and take the softmax in float32."""
+    B = x.shape[0]
+    h, hd, vd = cfg.num_heads, cfg.head_dim, cfg.v_head_dim
+    kvr = cfg.kv_lora_rank
+    positions = torch.full((B, 1), index, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)          # (B,1,H,hd/rd)
+    c_new, kr_new = _mla_latent(p, cfg, x, positions)
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    c_kv[:, index:index + 1] = c_new
+    k_rope[:, index:index + 1] = kr_new
+    S_max = c_kv.shape[1]
+    scale = 1.0 / math.sqrt(hd + cfg.rope_head_dim)
+
+    wkv_b = p["wkv_b"]["w"].to(x.dtype).reshape(kvr, h, hd + vd)
+    w_uk = wkv_b[..., :hd]                                  # (kvr, H, hd)
+    w_uv = wkv_b[..., hd:]                                  # (kvr, H, vd)
+    c_x, kr_x = c_kv.to(x.dtype), k_rope.to(x.dtype)
+    if absorbed:
+        q_lat = torch.einsum("bqhd,chd->bqhc", q_nope, w_uk)  # (B,1,H,kvr)
+        s = (torch.einsum("bqhc,bsc->bhqs", q_lat, c_x) +
+             torch.einsum("bqhd,bsd->bhqs", q_rope, kr_x))
+    else:
+        kvb = dense(p["wkv_b"], c_x).reshape(B, S_max, h, hd + vd)
+        s = (torch.einsum("bqhd,bshd->bhqs", q_nope, kvb[..., :hd]) +
+             torch.einsum("bqhd,bsd->bhqs", q_rope, kr_x))
+    s = s * scale
+    valid = torch.arange(S_max, device=x.device) <= index
+    s = s.masked_fill(~valid, -math.inf)
+    w = torch.softmax(s.float(), dim=-1).to(x.dtype)
+    if absorbed:
+        o_lat = torch.einsum("bhqs,bsc->bqhc", w, c_x)
+        out = torch.einsum("bqhc,chd->bqhd", o_lat, w_uv)      # (B,1,H,vd)
+    else:
+        out = torch.einsum("bhqs,bshd->bqhd", w, kvb[..., hd:])
+    out = out.reshape(B, 1, h * vd)
+    return dense(p["wo"], out), {"c_kv": c_kv, "k_rope": k_rope}
+
+
+class MLA(ParamTree):
+    """One MLA mixer's weights (``wq_a``, ``qnorm``, ``wq_b``, ``wkv_a``,
+    ``kvnorm``, ``wkv_b``, ``wo``), keyed as the reference's params tree.
+    ``absorbed`` picks the decode form (the reference's default, True)."""
+
+    def __init__(self, cfg: ModelConfig, params: dict):
+        super().__init__(params)
+        self.cfg = cfg
+        self.absorbed = True
+
+    def forward(self, x):
+        return mla_train(self, self.cfg, x)
+
+    def prefill(self, x):
+        return mla_prefill(self, self.cfg, x)
+
+    def decode(self, x, cache, index: int):
+        return mla_decode(self, self.cfg, x, cache, index,
+                          absorbed=self.absorbed)

@@ -5,8 +5,7 @@ its name, default and string value, so one ``ModelConfig`` describes the
 same model in both packages.  It covers dense / GQA / MLA attention,
 SwiGLU / GELU MLPs, MoE layers, Mamba2 and RWKV6 token mixers, Zamba2-style
 shared attention blocks, encoder-decoder (Whisper) and stub modality
-frontends; :mod:`repro_torch.models.stack` runs the dense GQA family and
-refuses the rest (:func:`repro_torch.models.stack.unported_features`).
+frontends; :mod:`repro_torch.models.stack` runs every one of them.
 """
 from __future__ import annotations
 

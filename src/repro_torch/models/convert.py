@@ -7,7 +7,11 @@ The reference stacks each segment's layers along a leading axis
 segment ``s`` is block ``offset(s) + i``, counting the layers of the
 segments before it that are not shared attention.  A shared-attention
 segment's dict is empty in the reference (its weights are
-``shared_block``, no layer axis), so it holds no block.  Each leaf is
+``shared_block``, no layer axis), so it holds no block.  Whisper's
+encoder stacks its blocks the same way (``encoder.blocks.<leaf>`` of
+shape ``(encoder_layers, ...)``), unstacked into ``encoder.blocks.i``;
+``encoder.final_norm``, InternVL's ``frontend_proj`` and DeepSeek-V3's
+``mtp`` (``proj``, ``block``, ``norm``) carry over as they are.  Each leaf is
 copied into the parameter's own dtype: the float32 leaves of a bfloat16
 model (Mamba2's ``A_log``, ``D``, ``dt_bias``; RWKV6's ``w0``, ``u``)
 stay float32.
@@ -40,7 +44,9 @@ def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
 
 def _unstack(flat: Dict[str, np.ndarray], cfg: ModelConfig
              ) -> Dict[str, np.ndarray]:
-    """``segments.s.<leaf>`` of shape (count, ...) → ``blocks.j.<leaf>``."""
+    """``segments.s.<leaf>`` of shape (count, ...) → ``blocks.j.<leaf>``;
+    ``encoder.blocks.<leaf>`` of shape (encoder_layers, ...) →
+    ``encoder.blocks.i.<leaf>``."""
     out, offset = {}, {}
     start = 0
     for s, (kind, _moe, count) in enumerate(cfg.segments()):
@@ -50,18 +56,24 @@ def _unstack(flat: Dict[str, np.ndarray], cfg: ModelConfig
         start += count
     for name, arr in flat.items():
         parts = name.split(".")
-        if parts[0] != "segments":
+        if parts[:2] == ["encoder", "blocks"]:
+            prefix, start, count = "encoder.blocks", 0, cfg.encoder_layers
+            rest = parts[2:]
+        elif parts[0] == "segments":
+            if len(parts) < 3 or parts[1] not in offset:
+                raise KeyError(f"params_from_jax: unexpected leaf {name!r}")
+            prefix, (start, count) = "blocks", offset[parts[1]]
+            rest = parts[2:]
+        else:
             out[name] = arr
             continue
-        if len(parts) < 3 or parts[1] not in offset:
+        if not rest:
             raise KeyError(f"params_from_jax: unexpected leaf {name!r}")
-        start, count = offset[parts[1]]
-        rest = ".".join(parts[2:])
         if arr.ndim == 0 or arr.shape[0] != count:
             raise ValueError(f"params_from_jax: {name} has shape "
                              f"{arr.shape}, not {count} stacked layers")
         for i in range(count):
-            out[f"blocks.{start + i}.{rest}"] = arr[i]
+            out[f"{prefix}.{start + i}.{'.'.join(rest)}"] = arr[i]
     return out
 
 

@@ -1,30 +1,39 @@
-"""The decoder stack, the reference's ``models/stack.py`` on PyTorch, for
-the dense GQA family (``qwen2p5_14b``, ``qwen3_32b``, ``starcoder2_15b``,
+"""The composable decoder (and encoder-decoder) stack, the reference's
+``models/stack.py`` on PyTorch, for all ten archs of the registry: the
+dense GQA family (``qwen2p5_14b``, ``qwen3_32b``, ``starcoder2_15b``,
 ``deepseek_coder_33b``), MoE (``granite_moe_1b``), Mamba2 with Zamba2's
-shared attention block (``zamba2_2p7b``) and RWKV6 (``rwkv6_1p6b``).
+shared attention block (``zamba2_2p7b``), RWKV6 (``rwkv6_1p6b``), the
+encoder-decoder (``whisper_base``), the vision-stub prefix
+(``internvl2_1b``) and MLA with MTP (``deepseek_v3_671b``).
 
 One ``nn.Module`` per level: :class:`Stack` holds the embedding, the
-blocks, the shared block, the final norm and the LM head; :class:`Block`
-one layer (norms, a mixer — :class:`~.attention.Attention`,
-:class:`~.ssm.Mamba2` or :class:`~.rwkv.RWKV6` — and the MLP slot: a
-dense :class:`MLP`, a :class:`~.moe.MoE`, RWKV's channel mix, or nothing
-for Mamba2).  Each module is a :class:`~.layers.ParamTree` keyed as the
-reference's params tree, so the functional layers run on it directly.
-The reference stacks each segment's layers along a leading axis and scans
-them; here they are a ``ModuleList`` run in a Python loop, and decode
-caches keep the reference's tree: every leaf of a segment stacked along a
-leading layer axis (``k``/``v`` ``(layers, B, S_max, KV, D)``, Mamba2's
-``conv``/``state``, RWKV6's ``x_prev``/``state``/``cmix_x_prev``), a
-shared-attention invocation's ``k``/``v`` unstacked ``(B, S_max, KV, D)``.
+blocks, the shared block, the final norm, the LM head, and where the
+config asks for them Whisper's :class:`Encoder`, InternVL's
+``frontend_proj`` and DeepSeek-V3's ``mtp`` (``proj``, ``block``,
+``norm``); :class:`Block` one layer (norms, a mixer —
+:class:`~.attention.Attention`, :class:`~.attention.MLA`,
+:class:`~.ssm.Mamba2` or :class:`~.rwkv.RWKV6` — Whisper's ``ln_cross``
+and ``cross``, and the MLP slot: a dense :class:`MLP`, a
+:class:`~.moe.MoE`, RWKV's channel mix, or nothing for Mamba2).  Each
+module is a :class:`~.layers.ParamTree` keyed as the reference's params
+tree, so the functional layers run on it directly.  The reference stacks
+each segment's layers along a leading axis and scans them; here they are
+a ``ModuleList`` run in a Python loop, and decode caches keep the
+reference's tree: every leaf of a segment stacked along a leading layer
+axis (``k``/``v`` ``(layers, B, S_max, KV, D)``, MLA's ``c_kv``/``k_rope``,
+Whisper's ``cross_kv``, Mamba2's ``conv``/``state``, RWKV6's
+``x_prev``/``state``/``cmix_x_prev``), a shared-attention invocation's
+``k``/``v`` unstacked ``(B, S_max, KV, D)``.
 
 Public API (the reference's, forward only):
     init_params(cfg, seed, device=None)          -> (model, axes)
-    forward_train(model, cfg, batch)             -> (logits, aux, None)
+    forward_train(model, cfg, batch)             -> (logits, aux, mtp_logits)
     prefill(model, cfg, batch)                   -> (logits, caches)
     decode_step(model, cfg, token, caches, i)    -> (logits, caches)
 
-A config that needs a feature not ported yet raises
-``NotImplementedError`` at init (:func:`unported_features`).
+``batch`` is the reference's: ``tokens`` (B, S), with ``frames`` (B,
+encoder_seq, d_model) for Whisper or ``patches`` (B, frontend_seq,
+frontend_dim) for InternVL.
 """
 from __future__ import annotations
 
@@ -36,7 +45,8 @@ import torch.nn.functional as F
 
 from ..vector.engine import resolve_device
 from . import rwkv as rwkv_mod
-from .attention import Attention, gqa_init
+from .attention import (MLA, Attention, cross_kv, gqa_cross, gqa_init,
+                        mla_init)
 from .config import ATTN, MAMBA2, RWKV6, SHARED_ATTN, ModelConfig, torch_dtype
 from .layers import (ParamTree, Params, dense, dense_init, embed, embed_init,
                      mlp, mlp_init, rmsnorm, rmsnorm_init, unembed)
@@ -44,33 +54,6 @@ from .moe import MoE, moe_init
 from .rwkv import RWKV6 as RWKV6Mixer
 from .rwkv import rwkv6_init
 from .ssm import Mamba2, mamba2_init
-
-LATER_ITEM = ("ROADMAP Queue 1 item 9 ports them next: Whisper's encoder "
-              "and cross-attention and InternVL's vision stub, then "
-              "DeepSeek-V3's MLA and MTP")
-
-
-def unported_features(cfg: ModelConfig) -> List[str]:
-    """What ``cfg`` needs that the port does not run yet."""
-    feats = []
-    if cfg.attention != "gqa":
-        feats.append(f"{cfg.attention} attention")
-    if cfg.encoder_layers or cfg.cross_attention:
-        feats.append("encoder and cross-attention")
-    if cfg.frontend != "none":
-        feats.append(cfg.frontend)
-    if cfg.mtp_depth:
-        feats.append("mtp")
-    return feats
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    feats = unported_features(cfg)
-    if feats:
-        raise NotImplementedError(
-            f"{cfg.name} needs {', '.join(feats)}, which the port does not "
-            f"run yet: {LATER_ITEM} (the dense GQA, MoE, Mamba2 and RWKV6 "
-            f"families run now)")
 
 
 # ---------------------------------------------------------------------------
@@ -93,6 +76,14 @@ MIXERS = {ATTN: Attention, SHARED_ATTN: Attention, MAMBA2: Mamba2,
           RWKV6: RWKV6Mixer}
 
 
+def mixer_class(cfg: ModelConfig, kind: str):
+    """The mixer module of a block of ``kind``: MLA for attention when the
+    config asks for it, else by kind."""
+    if cfg.attention == "mla" and kind in (ATTN, SHARED_ATTN):
+        return MLA
+    return MIXERS[kind]
+
+
 def channel_mix(p, cfg: ModelConfig, x, x_prev):
     """RWKV squared-relu channel mix with token shift."""
     shifted = rwkv_mod._shift(x, x_prev)
@@ -105,13 +96,16 @@ def channel_mix(p, cfg: ModelConfig, x, x_prev):
 
 
 class Block(ParamTree):
-    """One layer of kind ``kind``: ``ln1``, ``mixer``, and the MLP slot —
-    ``ln2`` with ``mlp`` or ``moe`` for attention, ``ln2`` with the
-    channel mix (``cmix_*``, ``mu_ck``, ``mu_cr``) for RWKV6, nothing for
-    Mamba2."""
+    """One layer of kind ``kind``: ``ln1``, ``mixer``, Whisper's
+    ``ln_cross`` and ``cross`` (a decoder block of a cross-attention
+    config), and the MLP slot — ``ln2`` with ``mlp`` or ``moe`` for
+    attention, ``ln2`` with the channel mix (``cmix_*``, ``mu_ck``,
+    ``mu_cr``) for RWKV6, nothing for Mamba2."""
 
     def __init__(self, cfg: ModelConfig, kind: str, params: dict):
-        children = {"mixer": MIXERS[kind](cfg, params["mixer"])}
+        children = {"mixer": mixer_class(cfg, kind)(cfg, params["mixer"])}
+        if "cross" in params:
+            children["cross"] = Attention(cfg, params["cross"])
         if "mlp" in params:
             children["mlp"] = MLP(cfg, params["mlp"])
         if "moe" in params:
@@ -120,31 +114,50 @@ class Block(ParamTree):
         self.cfg = cfg
         self.kind = kind
 
-    def forward(self, x):
-        """Returns (x, aux)."""
+    def forward(self, x, enc_out=None, causal: bool = True):
+        """Returns (x, aux); ``causal=False`` is the encoder's
+        bidirectional attention."""
         h = rmsnorm(self["ln1"], x, self.cfg.norm_eps)
-        x, aux, _ = self._ffn(x + self["mixer"](h), None)
+        mix = self["mixer"](h) if causal else self["mixer"](h, causal=False)
+        x = x + mix
+        if "cross" in self and enc_out is not None:
+            x = self._cross(x, cross_kv(self["cross"], self.cfg, enc_out))
+        x, aux, _ = self._ffn(x, None)
         return x, aux
 
-    def prefill(self, x):
-        """Returns (x, aux, cache)."""
+    def prefill(self, x, enc_out=None):
+        """Returns (x, aux, cache); a cross block's cache holds the
+        encoder's ``cross_kv``."""
         h = rmsnorm(self["ln1"], x, self.cfg.norm_eps)
         mix, c = self["mixer"].prefill(h)
-        x, aux, h = self._ffn(x + mix, None)
         cache = {"mixer": c}
+        x = x + mix
+        if "cross" in self and enc_out is not None:
+            cache["cross_kv"] = cross_kv(self["cross"], self.cfg, enc_out)
+            x = self._cross(x, cache["cross_kv"])
+        x, aux, h = self._ffn(x, None)
         if self.kind == RWKV6:
             cache["cmix_x_prev"] = h[:, -1:, :]
         return x, aux, cache
 
     def decode(self, x, cache, index: int):
-        """x: (B, 1, d).  Returns (x, cache)."""
+        """x: (B, 1, d).  Returns (x, cache); ``cross_kv`` is read, never
+        written."""
         h = rmsnorm(self["ln1"], x, self.cfg.norm_eps)
         mix, c = self["mixer"].decode(h, cache["mixer"], index)
-        x, _, h = self._ffn(x + mix, cache.get("cmix_x_prev"))
         new = {"mixer": c}
+        x = x + mix
+        if "cross" in self and "cross_kv" in cache:
+            x = self._cross(x, cache["cross_kv"])
+            new["cross_kv"] = cache["cross_kv"]
+        x, _, h = self._ffn(x, cache.get("cmix_x_prev"))
         if self.kind == RWKV6:
             new["cmix_x_prev"] = h
         return x, new
+
+    def _cross(self, x, enc_kv):
+        h = rmsnorm(self["ln_cross"], x, self.cfg.norm_eps)
+        return x + gqa_cross(self["cross"], self.cfg, h, enc_kv)
 
     def _ffn(self, x, x_prev):
         """The MLP slot: (x, aux, its input ``h``) — ``h`` is the channel
@@ -168,19 +181,23 @@ class Block(ParamTree):
 
 
 def _block_init(gen, cfg: ModelConfig, kind: str, is_moe: bool, dtype,
-                device):
+                device, cross: bool = False):
     d = cfg.d_model
     p: Params = {}
     a: Params = {}
     p["ln1"], a["ln1"] = rmsnorm_init(d, dtype, device)
     if kind in (ATTN, SHARED_ATTN):
-        p["mixer"], a["mixer"] = gqa_init(gen, cfg, dtype, device)
+        init = mla_init if cfg.attention == "mla" else gqa_init
+        p["mixer"], a["mixer"] = init(gen, cfg, dtype, device)
     elif kind == MAMBA2:
         p["mixer"], a["mixer"] = mamba2_init(gen, cfg, dtype, device)
     elif kind == RWKV6:
         p["mixer"], a["mixer"] = rwkv6_init(gen, cfg, dtype, device)
     else:
         raise ValueError(kind)
+    if cross:
+        p["ln_cross"], a["ln_cross"] = rmsnorm_init(d, dtype, device)
+        p["cross"], a["cross"] = gqa_init(gen, cfg, dtype, device)
     # MLP slot: attention blocks get a dense MLP or MoE; mamba blocks are
     # mixer-only; rwkv blocks use the squared-relu channel mix.
     if kind in (ATTN, SHARED_ATTN):
@@ -239,16 +256,44 @@ def _store_layer(tree, i: int, new):
     return tree
 
 
+class Encoder(nn.Module):
+    """Whisper's encoder: ``blocks`` (attention blocks without cross,
+    run bidirectionally) and ``final_norm``."""
+
+    def __init__(self, cfg: ModelConfig, gen, dtype, device):
+        super().__init__()
+        self.cfg = cfg
+        blocks = []
+        for _ in range(cfg.encoder_layers):
+            p, a = _block_init(gen, cfg, ATTN, False, dtype, device)
+            blocks.append(Block(cfg, ATTN, p))
+        self.blocks = nn.ModuleList(blocks)
+        p, norm_axes = rmsnorm_init(cfg.d_model, dtype, device)
+        self.final_norm = nn.ParameterDict(p)
+        self.axes = {"blocks": prefix_axes(a, None),
+                     "final_norm": norm_axes}
+
+    def forward(self, frames):
+        """frames (B, S_enc, d_model), cast to the activation dtype and
+        not projected → the encoder's output."""
+        x = frames.to(self.cfg.activation_dtype)
+        for blk in self.blocks:
+            x, _ = blk(x, causal=False)
+        return rmsnorm(self.final_norm, x, self.cfg.norm_eps)
+
+
 class Stack(nn.Module):
     """The decoder: ``embed``, ``blocks`` (every non-shared segment's
     layers in order), ``shared_block`` (Zamba2's one shared attention
-    block, invoked at each of its segments), ``final_norm`` and, untied,
-    ``lm_head``.  With no generator the weights are left uninitialised,
-    for a caller that loads them."""
+    block, invoked at each of its segments), ``final_norm``, untied
+    ``lm_head``, and by config ``encoder`` (Whisper), ``frontend_proj``
+    (InternVL's patches into the LM) and ``mtp`` (DeepSeek-V3's depth-1
+    multi-token prediction: ``proj``, ``block``, ``norm``).  With no
+    generator the weights are left uninitialised, for a caller that loads
+    them."""
 
     def __init__(self, cfg: ModelConfig, gen, device):
         super().__init__()
-        check_ported(cfg)
         self.cfg = cfg
         dtype = torch_dtype(cfg.param_dtype)
         p, a = embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype, device)
@@ -260,7 +305,8 @@ class Stack(nn.Module):
                 axes["segments"].append({})   # weights in shared_block
                 continue
             for _ in range(count):
-                p, a = _block_init(gen, cfg, kind, is_moe, dtype, device)
+                p, a = _block_init(gen, cfg, kind, is_moe, dtype, device,
+                                   cross=cfg.cross_attention)
                 blocks.append(Block(cfg, kind, p))
             axes["segments"].append(prefix_axes(a, None))
         self.blocks = nn.ModuleList(blocks)
@@ -275,6 +321,24 @@ class Stack(nn.Module):
                                             cfg.padded_vocab, None, "vocab",
                                             dtype, device=device)
             self.lm_head = nn.ParameterDict(p)
+        if cfg.encoder_layers:
+            self.encoder = Encoder(cfg, gen, dtype, device)
+            axes["encoder"] = self.encoder.axes
+        if cfg.frontend == "vision_stub":
+            p, axes["frontend_proj"] = dense_init(
+                gen, cfg.frontend_dim, cfg.d_model, None, None, dtype,
+                device=device)
+            self.frontend_proj = nn.ParameterDict(p)
+        if cfg.mtp_depth:
+            p, a = {}, {}
+            p["proj"], a["proj"] = dense_init(gen, 2 * cfg.d_model,
+                                              cfg.d_model, None, None, dtype,
+                                              device=device)
+            p["block"], a["block"] = _block_init(gen, cfg, ATTN, False,
+                                                 dtype, device)
+            p["norm"], a["norm"] = rmsnorm_init(cfg.d_model, dtype, device)
+            self.mtp = ParamTree(p, {"block": Block(cfg, ATTN, p["block"])})
+            axes["mtp"] = a
         self.axes = axes
 
     def segment_blocks(self) -> List[Tuple[bool, List[Block]]]:
@@ -291,6 +355,22 @@ class Stack(nn.Module):
 
     def embed_tokens(self, tokens) -> torch.Tensor:
         return embed(self.embed, tokens, self.cfg.activation_dtype)
+
+    def embed_inputs(self, batch) -> torch.Tensor:
+        """The token embeddings, after InternVL's projected patches (cast
+        to the activation dtype before the projection)."""
+        x = self.embed_tokens(batch["tokens"])
+        if self.cfg.frontend == "vision_stub":
+            patches = batch["patches"].to(self.cfg.activation_dtype)
+            x = torch.cat([dense(self.frontend_proj, patches), x], dim=1)
+        return x
+
+    def encode(self, batch):
+        """Whisper's encoder output over ``batch["frames"]``; None without
+        an encoder."""
+        if not self.cfg.encoder_layers:
+            return None
+        return self.encoder(batch["frames"])
 
     def logits(self, x) -> torch.Tensor:
         cfg = self.cfg
@@ -309,28 +389,44 @@ class Stack(nn.Module):
         return logits
 
     @torch.inference_mode()
-    def forward(self, tokens):
-        """Teacher-forcing forward: tokens (B, S) → (logits (B, S, V), the
-        summed MoE aux)."""
-        x = self.embed_tokens(tokens)
+    def forward(self, batch):
+        """Teacher-forcing forward over the batch dict → (logits (B, S*,
+        V), the summed MoE aux, the MTP logits or None)."""
+        x = self.embed_inputs(batch)
+        enc_out = self.encode(batch)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for _shared, seg in self.segment_blocks():
             seg_aux = torch.zeros_like(aux)
             for blk in seg:
-                x, a = blk(x)
+                x, a = blk(x, enc_out)
                 seg_aux = seg_aux + a
             aux = aux + seg_aux
-        return self.logits(x), aux
+        logits = self.logits(x)
+        if not self.cfg.mtp_depth:
+            return logits, aux, None
+        # multi-token prediction (depth 1): the hidden state before the
+        # final norm with the next token's embedding (wrapping around at
+        # the end), one more block, its norm, then the final norm again
+        emb_next = torch.roll(self.embed_tokens(batch["tokens"]), -1, dims=1)
+        pad = x.shape[1] - emb_next.shape[1]
+        if pad:
+            emb_next = F.pad(emb_next, [0, 0, pad, 0])
+        h = dense(self.mtp["proj"], torch.cat([x, emb_next], dim=-1))
+        h, _ = self.mtp["block"](h)
+        h = rmsnorm(self.mtp["norm"], h, self.cfg.norm_eps)
+        return logits, aux, self.logits(h)
 
     @torch.inference_mode()
-    def prefill(self, tokens):
-        """Full-prefix forward building decode caches of length S."""
-        x = self.embed_tokens(tokens)
-        caches: Dict[str, Any] = {"index": tokens.shape[1], "segments": []}
+    def prefill(self, batch):
+        """Full-prefix forward building decode caches of the prefix's
+        length (InternVL's patches included)."""
+        x = self.embed_inputs(batch)
+        enc_out = self.encode(batch)
+        caches: Dict[str, Any] = {"index": x.shape[1], "segments": []}
         for shared, seg in self.segment_blocks():
             cs = []
             for blk in seg:
-                x, _, c = blk.prefill(x)
+                x, _, c = blk.prefill(x, enc_out)
                 cs.append(c)
             caches["segments"].append(cs[0] if shared else _stack_trees(cs))
         return self.logits(x), caches
@@ -376,18 +472,18 @@ def _same_config(model: Stack, cfg: ModelConfig) -> None:
 
 
 def forward_train(model: Stack, cfg: ModelConfig, batch):
-    """batch: {tokens (B,S)} → (logits (B,S,V), aux, None) — forward only
-    (no loss, no remat); ``aux`` is the MoE layers' summed load-balancing
-    loss, zero without MoE."""
+    """batch: {tokens (B,S), [patches|frames]} → (logits (B,S*,V), aux,
+    mtp_logits) — forward only (no loss, no remat); ``aux`` is the MoE
+    layers' summed load-balancing loss, zero without MoE; ``mtp_logits``
+    None without MTP."""
     _same_config(model, cfg)
-    logits, aux = model(batch["tokens"])
-    return logits, aux, None
+    return model(batch)
 
 
 def prefill(model: Stack, cfg: ModelConfig, batch):
-    """Returns (logits (B, S, V), caches)."""
+    """Returns (logits (B, S*, V), caches)."""
     _same_config(model, cfg)
-    return model.prefill(batch["tokens"])
+    return model.prefill(batch)
 
 
 def decode_step(model: Stack, cfg: ModelConfig, token, caches, index: int):

@@ -23,16 +23,16 @@ from repro.models import init_params as ref_init_params
 from repro.models import layers as rlayers
 from repro.models import prefill as ref_prefill
 from repro_torch import configs as tcfgs
+from repro_torch.launch import serve
 from repro_torch.models import (attention, decode_step, forward_train,
                                 init_decode_caches, init_params, layers,
                                 params_from_jax, prefill)
 
 DENSE_ARCHS = ["qwen2p5_14b", "qwen3_32b", "starcoder2_15b",
                "deepseek_coder_33b"]
-# the archs still unported: MLA and MTP, encoder and cross-attention, the
-# vision stub (the MoE, Mamba2 and RWKV6 archs: tests/test_torch_moe.py and
-# tests/test_torch_recurrent.py)
-OTHER_ARCHS = ["deepseek_v3_671b", "whisper_base", "internvl2_1b"]
+# the other families' own tests: tests/test_torch_moe.py,
+# tests/test_torch_recurrent.py, tests/test_torch_encdec.py and
+# tests/test_torch_mla.py
 
 
 def to_np(tree):
@@ -234,19 +234,47 @@ def test_registry_matches_reference():
     assert padded.padded_vocab == 288
 
 
-def test_other_archs_raise_not_implemented():
-    for arch in OTHER_ARCHS:
-        cfg = tcfgs.get_smoke_config(arch)
-        with pytest.raises(NotImplementedError,
-                           match=f"{cfg.name} needs .*ROADMAP Queue 1"):
-            init_params(cfg, 0, "cpu")
-        with pytest.raises(NotImplementedError, match=cfg.name):
-            init_decode_caches(cfg, 2, 8, device="cpu")
-    for fn in (attention.mla_init, attention.mla_train,
-               attention.mla_prefill, attention.mla_decode,
-               attention.gqa_cross, attention.cross_kv):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            fn(None, None, None)
+def test_every_arch_serves_as_the_reference():
+    """Every arch of the registry at its smoke config on the CPU, weights
+    carried from the reference: prefill (over the arch's frames or
+    patches, from a seed) and one decode step ≡ ``repro``'s, logits and
+    every cache leaf at 1e-4."""
+    B, S0 = 2, 6
+    for arch in rcfgs.ARCHS:
+        cfg, tcfg = rcfgs.get_smoke_config(arch), tcfgs.get_smoke_config(arch)
+        params, _ = ref_init_params(cfg, jax.random.PRNGKey(0))
+        model = params_from_jax(to_np(params), tcfg, "cpu")
+        rng = np.random.default_rng(11)
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S0 + 1))}
+        if cfg.encoder_layers:
+            batch["frames"] = draw(rng, B, cfg.encoder_seq, cfg.d_model)
+        if cfg.frontend == "vision_stub":
+            batch["patches"] = draw(rng, B, cfg.frontend_seq,
+                                    cfg.frontend_dim)
+        toks = batch["tokens"]
+        b0 = dict(batch, tokens=toks[:, :S0])
+        logits, caches = ref_prefill(params, cfg,
+                                     {k: jnp.asarray(v) for k, v in b0.items()})
+        tlogits, tcaches = prefill(model, tcfg, {k: torch.from_numpy(v)
+                                                 for k, v in b0.items()})
+        close(logits, tlogits, 1e-4)
+        index = int(caches["index"])
+        assert tcaches["index"] == index, arch
+        caches = ref_grow_caches(caches, index + 1)
+        tcaches = serve.grow_caches(tcaches, index + 1)
+        logits, caches = ref_decode_step(params, cfg,
+                                         jnp.asarray(toks[:, S0:]), caches,
+                                         index)
+        tlogits, tcaches = decode_step(model, tcfg,
+                                       torch.from_numpy(toks[:, S0:]),
+                                       tcaches, index)
+        close(logits, tlogits, 1e-4)
+        want = jax.tree_util.tree_leaves_with_path(caches["segments"])
+        got = jax.tree_util.tree_leaves_with_path(
+            jax.tree.map(lambda t: t.numpy(), tcaches["segments"]))
+        assert [p for p, _ in want] == [p for p, _ in got], arch
+        for (path, w), (_, g) in zip(want, got):
+            close(w, g, 1e-4)
 
 
 def test_params_from_jax_refuses_a_missing_extra_or_misshapen_leaf():

@@ -57,21 +57,24 @@ class Routes:
             h.remove()
 
 
-def run(model, cfg, toks, S0):
-    """Teacher forcing, prefill and the decode steps' logits, every cache
-    leaf after the last step, and the MoE layers' routing."""
+def run(model, cfg, toks, S0, frontend):
+    """Teacher forcing (with the MTP logits, where the arch has them),
+    prefill and the decode steps' logits, every cache leaf after the last
+    step, and the MoE layers' routing; ``frontend`` the frames or patches
+    given with the tokens."""
     routes = Routes(model)
     S = toks.shape[1]
-    full = forward_train(model, cfg, {"tokens": toks})[0]
-    logits, caches = prefill(model, cfg, {"tokens": toks[:, :S0]})
-    caches = serve.grow_caches(caches, S)
+    full, _, mtp = forward_train(model, cfg, dict(frontend, tokens=toks))
+    logits, caches = prefill(model, cfg, dict(frontend, tokens=toks[:, :S0]))
+    start = caches["index"]
+    caches = serve.grow_caches(caches, start + S - S0)
     steps = [logits]
     for i in range(S0, S):
         logits_t, caches = decode_step(model, cfg, toks[:, i:i + 1], caches,
-                                       i)
+                                       start + i - S0)
         steps.append(logits_t)
     routes.remove()
-    return {"full": full, "steps": steps,
+    return {"full": full, "mtp": mtp, "steps": steps,
             "caches": leaves(caches["segments"]), "routes": routes.calls}
 
 
@@ -90,12 +93,14 @@ def lanes_apart(got, want):
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["qwen2p5_14b", "starcoder2_15b",
                                   "granite_moe_1b", "zamba2_2p7b",
-                                  "rwkv6_1p6b"])
+                                  "rwkv6_1p6b", "whisper_base",
+                                  "internvl2_1b", "deepseek_v3_671b"])
 def test_smoke_model_on_cuda_matches_cpu(arch):
     """The smoke model on the card ≡ on the CPU at 1e-4: logits of teacher
-    forcing, prefill and each decode step, and every cache leaf; MoE
-    routing compared first, and lanes routed apart at a near-tie (counted)
-    left out."""
+    forcing (and MTP), prefill and each decode step, and every cache leaf
+    (Whisper's ``cross_kv`` and MLA's latent among them), over the same
+    frames or patches; MoE routing compared first, and lanes routed apart
+    at a near-tie (counted) left out."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the serve path's default device")
     serve.set_matmul_precision()
@@ -104,13 +109,20 @@ def test_smoke_model_on_cuda_matches_cpu(arch):
     card = copy.deepcopy(cpu).to("cuda")
     gen = torch.Generator().manual_seed(3)
     toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen)
-    want = run(cpu, cfg, toks, 8)
-    got = run(card, cfg, toks.cuda(), 8)
+    frontend = serve.make_frontend(cfg, 2, "cpu")
+    want = run(cpu, cfg, toks, 8, frontend)
+    got = run(card, cfg, toks.cuda(), 8,
+              {k: v.cuda() for k, v in frontend.items()})
     apart = lanes_apart(got["routes"], want["routes"])
     keep = [b for b in range(toks.shape[0]) if b not in apart]
     assert keep, f"every lane routed apart at a near-tie: {sorted(apart)}"
     err = float((got["full"][keep].cpu() - want["full"][keep]).abs().max())
     assert err < 1e-4, ("full", err)
+    assert (got["mtp"] is None) == (want["mtp"] is None) == (
+        not cfg.mtp_depth)
+    if cfg.mtp_depth:
+        err = float((got["mtp"][keep].cpu() - want["mtp"][keep]).abs().max())
+        assert err < 1e-4, ("mtp", err)
     for a, b in zip(got["steps"], want["steps"]):
         assert float((a[keep].cpu() - b[keep]).abs().max()) < 1e-4
     assert sorted(got["caches"]) == sorted(want["caches"])
