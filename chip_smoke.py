@@ -242,6 +242,35 @@ started together), then runs these phases, each printing one JSON line:
     process of its own after the bf16 model's), where the expanded MLA
     decode ≡ the absorbed one at 5e-4.  Then the guard over each arch's
     128 token events as 17b (card ≡ CPU ≡ host, both kernels ≡ plain).
+    Phases 18 and 19 run under the mesh of one rank (``data`` 1 ×
+    ``model`` 1), as the launcher does, so MoE takes the reference
+    launcher's paths: the weights-stationary pass at 512 tokens or fewer
+    (prefill's 32, each step's 4, teacher forcing's 160), which drops no
+    token-choice.
+
+20. training, each run in a process of its own (``chip_smoke.py
+    --train-worker PART``), on the mesh of one rank, AdamW at 1e-4 after
+    a 2-step warm-up: 20a Qwen2.5-14B at its published widths (d_model
+    5120, 40 heads, 8 KV heads, d_ff 13824, vocab 152064, untied) with 8
+    of its 48 layers (``reduced``), B=2 × S=4096 (train_4k's length),
+    bf16 weights and gradients, f32 moments, remat: 6 steps on one
+    memorised batch, every metric finite, the loss descending; step ms,
+    tokens/s, peak memory, the optimizer's share, the bound (bf16 matmul
+    and causal attention operations, remat's recompute counted).  20b
+    Granite-MoE-1B's published config whole at B=4 × S=4096: the sharded
+    pass (capacity 5120), the same checks, the share of token-choices
+    dropped a step.  20c Qwen2.5-14B's widths with 1 layer in float32,
+    B=1 × S=64: one step on the card ≡ the same step on the CPU from the
+    same weights, with int8 gradient compression (loss, grad_norm,
+    every parameter and moment, the error tree; int8 levels one apart
+    counted and left out).  20d the ``Trainer`` on a bf16 smoke model (bf16 moments,
+    checkpoints every 2 steps), deterministic algorithms on: 6 steps
+    straight ≡ 4 steps, then a new process resuming to step 6, loss for
+    loss.  20e the STEP events of 20a-20d through the host executor and
+    ``StreamingVectorEngine`` on the card (one fused_scan launch a chunk)
+    ≡ its plain version ≡ the host; ``fused_scan`` ≡ plain on one more
+    chunk with its time and bound.  20f ``examples/torch_train_small.py``
+    on the card exits 0.
 
 Phase 8 also times ``bitvector`` alone on the device: its launches
 queued behind a spin kernel, so host work leaves no gap between them
@@ -249,8 +278,8 @@ queued behind a spin kernel, so host work leaves no gap between them
 
 Then the kernels line and, last, ``{"ok": true, "device": {...}}``.  Every
 comparison of kernel and plain version is exact (tolerance 0; the models
-of phases 17a, 18 and 19 are no kernels and have the tolerances stated
-there): counts are f32 integers, exact below 2^24 in any order of
+of phases 17a, 18, 19 and 20 are no kernels and have the tolerances
+stated there): counts are f32 integers, exact below 2^24 in any order of
 summation, and the script checks that every count stays below 2^24; the
 arena's records, roots and stores are int32 node ids.  Any failure
 raises, so the exit code is not 0 and no result line is printed.
@@ -4211,8 +4240,9 @@ def teacher_forcing_err(model, cfg, run, tag: str = "17a") -> dict:
     from repro_torch.models import forward_train
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    full, _, mtp = forward_train(model, cfg, dict(run.frontend,
-                                                  tokens=run.fed))
+    with torch.no_grad():
+        full, _, mtp = forward_train(model, cfg, dict(run.frontend,
+                                                      tokens=run.fed))
     torch.cuda.synchronize()
     tf_s = time.perf_counter() - t0
     dec = torch.cat([run.prefill_logits, torch.stack(run.step_logits, 1)],
@@ -4758,21 +4788,26 @@ class MoEProbe:
 
     def __init__(self, model):
         from repro_torch.models import moe
-        self.moe, self.calls = moe, []
+        self.moe, self.calls, self.paths = moe, [], set()
         self.handles = [m.register_forward_hook(self.hook)
                         for m in model.modules() if isinstance(m, moe.MoE)]
         self.layers = len(self.handles)
 
     def hook(self, module, inputs, output):
+        from repro_torch.launch.mesh import current_model_mesh
         x = inputs[0]
         cfg = module.cfg
         probs, _, choices = self.moe.route(module, cfg,
                                            x.reshape(-1, x.shape[-1]))
         top = probs.sort(dim=-1, descending=True).values
         k = cfg.moe.top_k
+        # the capacity of the path moe_apply takes here (None: the
+        # stationary pass, which has none)
+        path, cap = self.moe.moe_path(cfg, x.shape[0], x.shape[1],
+                                      current_model_mesh())
+        self.paths.add(path)
         self.calls.append((tuple(x.shape[:2]), choices,
-                           top[:, k - 1] - top[:, k],
-                           self.moe.capacity(cfg, x.shape[0] * x.shape[1])))
+                           top[:, k - 1] - top[:, k], cap))
 
     def remove(self):
         for h in self.handles:
@@ -4780,7 +4815,8 @@ class MoEProbe:
 
     def steps(self, cfg):
         """Per forward (``layers`` calls each): experts chosen summed over
-        layers, token-choices, those beyond capacity, and the kept."""
+        layers, token-choices, those beyond capacity (none on the
+        stationary pass), and the kept."""
         out = []
         E = cfg.moe.num_experts
         for i in range(0, len(self.calls), self.layers):
@@ -4789,7 +4825,8 @@ class MoEProbe:
                 counts = torch.bincount(ch.reshape(-1), minlength=E)
                 experts += int((counts > 0).sum())
                 choices += ch.numel()
-                dropped += int((counts - cap).clamp(min=0).sum())
+                if cap is not None:
+                    dropped += int((counts - cap).clamp(min=0).sum())
             out.append({"experts": experts, "choices": choices,
                         "dropped": dropped, "kept": choices - dropped})
         return out
@@ -4853,6 +4890,16 @@ def routing_agreement(dec_probe, tf_probe, lanes: int) -> dict:
 
 def serve_arch(arch: str, seed: int, dev: str = "cuda",
                with_cut: bool = True) -> tuple:
+    """``serve_arch_on_mesh`` under the mesh of one rank, which the
+    launcher enters (``launch/serve.py``): MoE takes the reference
+    launcher's expert-parallel paths."""
+    from repro_torch.launch.mesh import host_model_mesh, use_model_mesh
+    with use_model_mesh(host_model_mesh()):
+        return serve_arch_on_mesh(arch, seed, dev, with_cut)
+
+
+def serve_arch_on_mesh(arch: str, seed: int, dev: str = "cuda",
+                       with_cut: bool = True) -> tuple:
     """18a-c and 19a-c, one arch: its published config in bf16 (DeepSeek-V3
     at its published widths, its depth cut to ``DEPTH_19``'s), weights
     from the seed: the published shape and the parameter count; 4 lanes,
@@ -4864,7 +4911,9 @@ def serve_arch(arch: str, seed: int, dev: str = "cuda",
     rounding; with ``with_cut``, ``f32_cut``.  For an MoE arch the checks
     run at capacity factor E/k, where nothing is dropped (the same
     weights: the factor draws nothing), and the published run reports the
-    share of token-choices dropped a step."""
+    share of token-choices dropped a step (none on the stationary pass,
+    which prefill's 32 tokens and every 4-token step take) and the MoE
+    paths taken."""
     import dataclasses
     import gc
 
@@ -4918,6 +4967,7 @@ def serve_arch(arch: str, seed: int, dev: str = "cuda",
               f"routed forwards")
         res["moe"] = {
             "capacity_factor": cfg.moe.capacity_factor,
+            "paths": sorted(probe.paths),
             "cap_prefill": probe.calls[0][3], "cap_decode": probe.calls[-1][3],
             "dropped_share_prefill": routing[0]["dropped"]
             / routing[0]["choices"],
@@ -5153,7 +5203,9 @@ def serve_worker_run(arch: str, part: str, seed: int) -> dict:
     out = {"arch": arch, "part": part, "free_GB_at_start": free / 1e9,
            "total_GB": total / 1e9}
     if part == "cut":
-        out["cut"] = f32_cut(arch, seed)
+        from repro_torch.launch.mesh import host_model_mesh, use_model_mesh
+        with use_model_mesh(host_model_mesh()):
+            out["cut"] = f32_cut(arch, seed)
         return out
     res, run = serve_arch(arch, seed, with_cut=arch not in CUT_APART)
     out.update(res, run={"tokens": run.tokens.tolist(),
@@ -5226,6 +5278,646 @@ def phase_serve_more(seed: int, smi: str) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 20: training on the card — Qwen2.5-14B at its published width (8
+# of 48 layers), Granite-MoE-1B whole, an f32 cut against the CPU, the
+# trainer's resume across processes, the monitor and the example
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 6
+# (arch, the depth kept, batch, sequence length): train_4k's length
+TRAIN_RUNS = {"20a": ("qwen2.5-14b", {"num_layers": 8}, 2, 4096),
+              "20b": ("granite-moe-1b-a400m", {}, 4, 4096)}
+# Qwen2.5-14B's published widths (layers, d_model, heads, KV heads,
+# head_dim, d_ff, vocab, tied)
+QWEN_PUBLISHED = (48, 5120, 40, 8, 128, 13824, 152064, False)
+# the optimizer of 20a-20d: AdamW's defaults with a 2-step warm-up to
+# 1e-4 (a short run on one memorised batch)
+TRAIN_OPT = dict(lr=1e-4, warmup_steps=2, total_steps=100)
+# the monitor over the STEP events of 20a-20d (20e)
+TRAIN_MONITOR = ("SELECT * FROM S WHERE STEP AS a ; STEP AS b "
+                 "FILTER a[loss > 1.0] AND b[grad_norm > 0.5] "
+                 "WITHIN 4 events")
+# 20c: the step's direction at step 1 is g / (|g| + eps); at eps 1e-6 a
+# gradient difference of δ moves it by at most δ / eps (see
+# tests/test_torch_train.py)
+CUT_EPS = 1e-6
+# where phase 20 trains (its CPU check aside)
+TRAIN_DEV = "cuda"
+
+
+def sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def qwen_shape(cfg) -> tuple:
+    return (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.tie_embeddings)
+
+
+def train_bound(model, cfg, B: int, S: int, kept=None) -> dict:
+    """Least seconds of one train step, by operations and by bytes.
+    Operations: 6 a matmul weight a token (forward 2, backward 4; an
+    expert's per token-choice kept, ``kept`` summed over layers), causal
+    attention's 6·B·H·S²·D a layer (the half of the score and value
+    products at or below the diagonal, forward and backward), and with
+    remat the blocks' forward once more (2 a weight a token, 2·B·H·S²·D a
+    layer), at the dense bf16 tensor-core peak.  Bytes: the parameters
+    read three times (forward, recompute, backward) and once more with
+    the update, written once, the gradients written and read, both
+    moments read and written, at the HBM rate."""
+    named = dict(model.named_parameters())
+    T = B * S
+    head = sum(p.numel() for n, p in named.items()
+               if n.startswith("lm_head."))
+    blocks = sum(p.numel() for n, p in named.items() if p.ndim == 2
+                 and n.endswith(".w") and n.startswith("blocks."))
+    experts = [p for n, p in named.items() if ".moe.w" in n]
+    per_choice = 0
+    if experts:
+        n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.num_layers))
+        per_choice = sum(p.numel() for p in experts) / (
+            n_moe * cfg.moe.num_experts)
+    attn = B * cfg.num_heads * S * S * cfg.head_dim * cfg.num_layers
+    fwd = 2 * (blocks * T + (kept or 0) * per_choice)
+    flops = 3 * fwd + 6 * attn + 6 * head * T
+    remat = (fwd + 2 * attn) if cfg.remat else 0
+    pb = next(iter(named.values())).element_size()
+    mb = 4 if cfg.opt_state_dtype == "float32" else 2
+    n = sum(p.numel() for p in named.values())
+    nbytes = n * (6 * pb + 2 * pb + 4 * mb)
+    t_ops = (flops + remat) / PEAK_BF16_FLOP_PER_S
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops + remat, "flops_without_remat": flops,
+            "bound_ms_without_remat": 1e3 * max(
+                flops / PEAK_BF16_FLOP_PER_S, t_bytes),
+            "bytes": nbytes}
+
+
+class TrainProbe:
+    """Per MoE call of a train step's forward (the first ``layers`` calls
+    after a step's mark; remat may repeat some in the backward): the
+    token-choices beyond capacity on the path ``moe_apply`` takes.  Its
+    hooks recompute the routing, inside the step's time."""
+
+    def __init__(self, model):
+        from repro_torch.launch.mesh import current_model_mesh
+        from repro_torch.models import moe
+        self.moe, self.mesh = moe, current_model_mesh
+        self.calls, self.starts = [], []
+        self.handles = [m.register_forward_hook(self.hook)
+                        for m in model.modules() if isinstance(m, moe.MoE)]
+        self.layers = len(self.handles)
+
+    @torch.no_grad()
+    def hook(self, module, inputs, output):
+        x = inputs[0]
+        cfg = module.cfg
+        _, _, choices = self.moe.route(module, cfg, x.reshape(-1,
+                                                              x.shape[-1]))
+        path, cap = self.moe.moe_path(cfg, x.shape[0], x.shape[1],
+                                      self.mesh())
+        counts = torch.bincount(choices.reshape(-1),
+                                minlength=cfg.moe.num_experts)
+        dropped = 0 if cap is None else int((counts - cap).clamp(
+            min=0).sum())
+        self.calls.append((path, cap, choices.numel(), dropped))
+
+    def remove(self):
+        for h in self.handles:
+            h.remove()
+
+    def mark(self) -> None:
+        """A step begins."""
+        self.starts.append(len(self.calls))
+
+    def steps(self) -> list:
+        out = []
+        for i in self.starts:
+            calls = self.calls[i:i + self.layers]
+            check(len(calls) == self.layers, f"20b: {len(calls)} MoE "
+                  f"calls in a step's forward, {self.layers} layers")
+            out.append({"paths": sorted({c[0] for c in calls}),
+                        "cap": calls[0][1],
+                        "choices": sum(c[2] for c in calls),
+                        "dropped": sum(c[3] for c in calls)})
+        return out
+
+
+def timed_optimizer(log: list):
+    """Wrap the train step's ``adamw_update`` so that each call's seconds
+    (its device work included) go to ``log``; returns the restore."""
+    from repro_torch.models import steps
+    plain = steps.adamw_update
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain(*a, **kw)
+        torch.cuda.synchronize()
+        log.append(time.perf_counter() - t0)
+        return out
+
+    steps.adamw_update = timed
+    return lambda: setattr(steps, "adamw_update", plain)
+
+
+def train_profile(step, state, batch) -> dict:
+    """One more train step under ``torch.profiler``: its kernels, the
+    device's busy time (the union of the kernels' intervals) against the
+    host clock, and the ops with the most device time of their own."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return {"wall_ms": wall_ms, "kernels": 0,
+                "device_busy_ms": "not measured",
+                "idle_share": "not measured"}
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+
+    def own(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    ops_ = sorted(((e.key, own(e) / 1e3, e.count)
+                   for e in prof.key_averages() if own(e) > 0),
+                  key=lambda t: -t[1])
+    return {"wall_ms": wall_ms, "kernels": len(spans),
+            "device_busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / 1e3 / wall_ms,
+            "top_ops_device_ms": [[k, ms, n] for k, ms, n in ops_[:12]]}
+
+
+def train_full(tag: str, seed: int) -> dict:
+    """20a / 20b: ``TRAIN_STEPS`` train steps on one memorised batch at
+    the run's width, bf16, remat as published, on the mesh of one rank:
+    every metric finite, the loss descending; step times (host clock
+    around a synchronize), tokens/s, peak memory, the optimizer's share,
+    the bound; for MoE the paths and the share of token-choices dropped a
+    step."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import host_model_mesh, use_model_mesh
+    from repro_torch.models import init_train_state, make_train_step
+    from repro_torch.optim import AdamWConfig
+    arch, depth, B, S = TRAIN_RUNS[tag]
+    serve.set_matmul_precision()
+    cfg = get_config(arch)
+    if tag == "20a":
+        check(qwen_shape(cfg) == QWEN_PUBLISHED, f"20a: the published "
+              f"widths, {qwen_shape(cfg)}")
+    else:
+        check(shape_of(cfg) == PUBLISHED[arch], f"{tag}: the published "
+              f"config, {shape_of(cfg)}")
+    reduced = {k: f"{getattr(cfg, k)} -> {v}" for k, v in depth.items()}
+    cfg = dataclasses.replace(cfg, **depth)
+    opt = AdamWConfig(moment_dtype=cfg.opt_state_dtype, **TRAIN_OPT)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = {"tag": tag, "arch": arch, "reduced": reduced, "B": B, "S": S,
+           "tokens": B * S, "remat": cfg.remat,
+           "param_dtype": cfg.param_dtype,
+           "moment_dtype": cfg.opt_state_dtype, "optimizer": TRAIN_OPT}
+    with use_model_mesh(host_model_mesh()):
+        t0 = time.perf_counter()
+        state, _ = init_train_state(cfg, opt, seed, device=TRAIN_DEV)
+        torch.cuda.synchronize()
+        res["init_s"] = time.perf_counter() - t0
+        model = state["params"]
+        res["params"] = sum(p.numel() for p in model.parameters())
+        res["state_GB"] = torch.cuda.memory_allocated() / 1e9
+        batch = TokenPipeline(cfg.vocab_size, B, S, seed=seed,
+                              device=TRAIN_DEV).batch_at(0)
+        step = make_train_step(cfg, opt)
+        probe = TrainProbe(model) if cfg.moe is not None else None
+        opt_s, step_s, metrics = [], [], []
+        restore = timed_optimizer(opt_s)
+        try:
+            for _ in range(TRAIN_STEPS):
+                if probe is not None:
+                    probe.mark()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                m = {k: float(v) for k, v in m.items()}
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                metrics.append(m)
+        finally:
+            restore()
+        res["peak_mem_GB"] = torch.cuda.max_memory_allocated() / 1e9
+        kept = None
+        if probe is not None:
+            probe.remove()
+        if TRAIN_DEV == "cuda":
+            # where a step's time goes: one more step, profiled
+            res["profile"] = train_profile(step, state, batch)
+        if probe is not None:
+            routing = probe.steps()
+            kept = float(np.mean([r["choices"] - r["dropped"]
+                                  for r in routing]))
+            res["moe"] = {
+                "capacity_factor": cfg.moe.capacity_factor,
+                "paths": sorted({p for r in routing for p in r["paths"]}),
+                "cap": routing[0]["cap"],
+                "dropped_share_per_step": [r["dropped"] / r["choices"]
+                                           for r in routing],
+                "choices_per_step": routing[0]["choices"]}
+            check(res["moe"]["paths"] == ["sharded"], f"{tag}: "
+                  f"{B * S} tokens take the sharded pass")
+        res["bound"] = train_bound(model, cfg, B, S, kept)
+    losses = [m["loss"] for m in metrics]
+    check(all(math.isfinite(v) for m in metrics for v in m.values()),
+          f"{tag}: every metric finite")
+    check(losses[-1] < losses[0], f"{tag}: the loss descends: {losses}")
+    step_ms = [1e3 * x for x in step_s]
+    med = float(np.median(step_ms))
+    res.update({
+        "metrics": metrics, "losses": losses,
+        "step_ms": step_ms, "step_ms_median": med,
+        "step_ms_spread": {"min": min(step_ms), "max": max(step_ms)},
+        "tokens_per_s": B * S / (med / 1e3),
+        "optimizer_ms": [1e3 * x for x in opt_s],
+        "optimizer_share": float(np.median(opt_s)) * 1e3 / med,
+        "bound_share": res["bound"]["bound_ms"] / med})
+    del state, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def cut_compare(card: dict, cpu: dict, lr: float) -> dict:
+    """Tensor by tensor on the card, the card's train state (``params``,
+    ``mu``, ``nu``, ``err``, each a dict by parameter name) against the
+    CPU's, one CPU tensor moved over at a time: the elements whose int8
+    level differs (the error apart by more than half a level) counted
+    and left out; parameters as a share of one step's learning rate,
+    moments against their tensor's largest magnitude, the error against
+    half a level."""
+    out = {"params_max_abs_err": 0.0, "mu_rel_err": 0.0, "nu_rel_err": 0.0,
+           "err_rel_err": 0.0, "flips": 0, "elements": 0}
+    for name, ref in card["params"].items():
+        dev = ref.device
+        a, b = card["err"][name], cpu["err"][name].to(dev)
+        level = 2 * float(b.abs().max())        # err lies within ±level/2
+        d = (a - b).abs()
+        flips = d > level / 2
+        out["flips"] += int(flips.sum())
+        out["elements"] += flips.numel()
+        out["err_rel_err"] = max(out["err_rel_err"], float(
+            d.masked_fill(flips, 0).max()) / max(level / 2, 1e-30))
+        for part, key in (("params", "params_max_abs_err"),
+                          ("mu", "mu_rel_err"), ("nu", "nu_rel_err")):
+            a = card[part][name].detach().float()
+            b = cpu[part][name].detach().to(dev).float()
+            err = float((a - b).abs().masked_fill(flips, 0).max())
+            if part != "params":
+                err /= max(float(b.abs().max()), 1e-30)
+            out[key] = max(out[key], err)
+            del a, b
+    out["params_err_in_lr"] = out["params_max_abs_err"] / lr
+    return out
+
+
+def train_cut(seed: int) -> dict:
+    """20c: Qwen2.5-14B's width with 1 layer, float32, B=1 × S=64, on the
+    mesh of one rank: one train step with int8 gradient compression (the
+    launcher's ``--compress-grads``) on the card against the same step on
+    the CPU from the same weights (copied off the card): loss, grad_norm,
+    every parameter, both moments and the error tree, the int8 levels one
+    apart counted and left out of the rest."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import host_model_mesh, use_model_mesh
+    from repro_torch.models import Stack, init_params, make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+    serve.set_matmul_precision()
+    cfg = dataclasses.replace(get_config("qwen2.5-14b"), num_layers=1,
+                              dtype="float32", param_dtype="float32")
+    opt = AdamWConfig(eps=CUT_EPS, **TRAIN_OPT)
+    B, S = 1, 64
+    res = {"case": "Qwen2.5-14B's widths, 1 layer, float32, one step with "
+           "int8 compression", "B": B, "S": S, "remat": cfg.remat,
+           "eps": CUT_EPS}
+    with use_model_mesh(host_model_mesh()):
+        card, _ = init_params(cfg, seed, TRAIN_DEV)
+        cpu = Stack(cfg, None, torch.device("cpu"))    # weights copied in
+        with torch.no_grad():
+            for a, b in zip(cpu.parameters(), card.parameters()):
+                a.copy_(b.cpu())
+        res["params"] = sum(p.numel() for p in card.parameters())
+        batch = TokenPipeline(cfg.vocab_size, B, S, seed=seed,
+                              device="cpu").batch_at(0)
+        sides = {}
+        for side, model, dev in (("card", card, TRAIN_DEV),
+                                 ("cpu", cpu, "cpu")):
+            named = dict(model.named_parameters())
+            st = {"params": model, "opt": adamw_init(named, opt),
+                  "err": {n: torch.zeros_like(p) for n, p in named.items()}}
+            t0 = time.perf_counter()
+            st, m = make_train_step(cfg, opt, compress=True)(
+                st, {k: v.to(dev) for k, v in batch.items()})
+            m = {k: float(v) for k, v in m.items()}
+            sync(dev)
+            sides[side] = ({"params": named, "mu": st["opt"]["mu"],
+                            "nu": st["opt"]["nu"], "err": st["err"]}, m,
+                           time.perf_counter() - t0)
+        (tc, mc, sc), (tp, mp, sp) = sides["card"], sides["cpu"]
+        t0 = time.perf_counter()
+        res.update({
+            "card_metrics": mc, "cpu_metrics": mp, "card_step_s": sc,
+            "cpu_step_s": sp,
+            "loss_rel_err": abs(mc["loss"] - mp["loss"]) / mp["loss"],
+            "grad_norm_rel_err": abs(mc["grad_norm"] - mp["grad_norm"])
+            / mp["grad_norm"], **cut_compare(tc, tp, mc["lr"])})
+        res["compare_s"] = time.perf_counter() - t0
+    tol = {"loss_rel": 1e-5, "grad_norm_rel": 1e-4, "params_in_lr": 0.01,
+           "moments_rel": 1e-4, "flip_share": 1e-3,
+           "err_in_half_level": 0.01}
+    res["tolerance"] = tol
+    check(res["loss_rel_err"] <= tol["loss_rel"], f"20c: loss card ≡ CPU: "
+          f"{res['loss_rel_err']}")
+    check(res["grad_norm_rel_err"] <= tol["grad_norm_rel"], f"20c: "
+          f"grad_norm card ≡ CPU: {res['grad_norm_rel_err']}")
+    check(res["params_err_in_lr"] <= tol["params_in_lr"], f"20c: "
+          f"parameters card ≡ CPU: {res['params_err_in_lr']} of lr")
+    check(max(res["mu_rel_err"], res["nu_rel_err"]) <= tol["moments_rel"],
+          f"20c: moments card ≡ CPU: {res['mu_rel_err']}, "
+          f"{res['nu_rel_err']}")
+    check(res["flips"] <= tol["flip_share"] * res["elements"] and
+          res["err_rel_err"] <= tol["err_in_half_level"], f"20c: "
+          f"{res['flips']} int8 levels apart of {res['elements']}, the "
+          f"error tree {res['err_rel_err']} of half a level")
+    res["metrics"] = [mc]
+    return res
+
+
+def trainer_cfg():
+    """20d's model: Qwen2.5-14B's smoke config with bf16 parameters and
+    moments."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    return dataclasses.replace(get_smoke_config("qwen2.5-14b"),
+                               dtype="bfloat16", param_dtype="bfloat16",
+                               opt_state_dtype="bfloat16")
+
+
+def trainer_run(directory: str, total: int, resume: bool, seed: int):
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.mesh import host_model_mesh, use_model_mesh
+    from repro_torch.models import init_train_state, make_train_step
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import Trainer, TrainerConfig
+    cfg = trainer_cfg()
+    opt = AdamWConfig(moment_dtype="bfloat16", **TRAIN_OPT)
+    with use_model_mesh(host_model_mesh()):
+        state, _ = init_train_state(cfg, opt, seed, device=TRAIN_DEV)
+        tr = Trainer(make_train_step(cfg, opt), state,
+                     TokenPipeline(cfg.vocab_size, 4, 128, seed=seed,
+                                   device=TRAIN_DEV),
+                     TrainerConfig(total_steps=total, checkpoint_every=2,
+                                   checkpoint_dir=directory))
+        report = tr.run(resume=resume)
+    return {"report": report, "metrics": tr.metrics_log,
+            "steps_saved": tr.ckpt.all_steps()}
+
+
+def train_trainer_part(part: str, work: str, seed: int) -> dict:
+    """20d in a process with deterministic algorithms on: ``run`` trains 6
+    steps straight (checkpoints every 2) and 4 steps in another
+    directory; ``resume`` resumes that directory to step 6."""
+    if part == "run":
+        straight = trainer_run(os.path.join(work, "straight"), TRAIN_STEPS,
+                               False, seed)
+        first = trainer_run(os.path.join(work, "first"), 4, False, seed)
+        return {"straight": straight, "first": first}
+    return {"resume": trainer_run(os.path.join(work, "first"), TRAIN_STEPS,
+                                  True, seed)}
+
+
+def train_worker_run(part: str, seed: int, work: str) -> dict:
+    """A phase-20 subprocess's work."""
+    if part in TRAIN_RUNS:
+        return train_full(part, seed)
+    if part == "20c":
+        return train_cut(seed)
+    return train_trainer_part(part.split("-")[1], work, seed)
+
+
+def train_worker(part: str, seed: int, work: Path, env=None) -> dict:
+    """``chip_smoke.py --train-worker PART`` as a subprocess on the card:
+    its exit code 0 and its last line's JSON."""
+    cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--train-worker",
+           part, "--seed", str(seed), "--train-dir", str(work)]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, text=True, capture_output=True,
+                         timeout=600, env=env)
+    check(out.returncode == 0, f"{part}: the worker exited "
+          f"{out.returncode}: {out.stderr[-3000:]}")
+    lines = out.stdout.strip().splitlines()
+    check(bool(lines), f"{part}: the worker printed nothing")
+    res = json.loads(lines[-1])
+    res["process_s"] = time.perf_counter() - t0
+    return res
+
+
+def train_monitor(events: list) -> dict:
+    """20e: the STEP events of 20a-20d, in order, as one stream through
+    the host executor and through ``StreamingVectorEngine`` on the card
+    (one fused_scan launch a chunk) and in its plain version: the same
+    matches at every position; ``fused_scan`` ≡ plain on one more chunk,
+    its time and bound."""
+    from repro_torch.core import Event, compile_query
+    from repro_torch.kernels import ops
+    from repro_torch.vector import StreamingVectorEngine, VectorEngine
+    # chunks that tile the stream: the largest length up to 16 that
+    # divides it (26 events: 2 chunks of 13)
+    T = max(t for t in range(1, 17) if len(events) % t == 0)
+    stream = [Event("STEP", dict(m), position=i, timestamp=float(i))
+              for i, m in enumerate(events)]
+    q = compile_query(TRAIN_MONITOR)
+    ex = q.make_executor()
+    host = np.array([len(ex.process(ev)) for ev in stream], np.int64)
+    want = host_counts(TRAIN_MONITOR, stream)
+    check(same(host, want), "20e: the executor ≡ the host Engine")
+    n_chunks = len(stream) // T
+    kern = StreamingVectorEngine(VectorEngine(TRAIN_MONITOR), T, 1)
+    plain = StreamingVectorEngine(VectorEngine(TRAIN_MONITOR, impl="ref"),
+                                  T, 1)
+    counters = reset_launches()
+    got_k, got_p, feed_s = [], [], []
+    for i in range(n_chunks):
+        part = [stream[i * T:(i + 1) * T]]
+        t0 = time.perf_counter()
+        got_k.append(kern.feed(part)[0])
+        feed_s.append(time.perf_counter() - t0)
+    launches = read_launches(counters)
+    for i in range(n_chunks):
+        got_p.append(plain.feed([stream[i * T:(i + 1) * T]])[0])
+    got_k = np.concatenate(got_k)[:, 0]
+    got_p = np.concatenate(got_p)[:, 0]
+    check(launches["fused_scan"] == n_chunks and sum(
+        launches.values()) == n_chunks, f"20e launched {launches}, "
+        f"expected one fused_scan a chunk")
+    check(same(got_k, got_p) and same(kern.state, plain.state),
+          "20e: the card's engine ≡ its plain version")
+    check(same(got_k, host), "20e: the card's matches ≡ the host "
+          "executor's")
+    check(int(host.sum()) > 0, "20e: the monitor fires")
+    # the kernel alone on the last chunk, from the engine's state
+    ve = kern.engine
+    t = ve.tables
+    attrs = ve.encode([stream[(n_chunks - 1) * T:]])
+    kw = dict(init_mask=t.init_mask, window=ve.window, start_pos=0,
+              latest_q=t.latest_q, consume_sq=t.consume_sq, inplace=True)
+
+    def run(impl, st):
+        return lambda: ops.cer_pipeline(
+            attrs, ve.encoder.specs, t.class_of, t.class_ind, t.m_all,
+            t.finals[None, :], st, impl=impl, **kw)
+    mk, ck = run("fused", clone_state(kern.state))()
+    mp, cp = run("ref", clone_state(kern.state))()
+    check(same(mk, mp) and same(ck, cp), "20e: fused_scan ≡ plain")
+    Tn, Bn, A = attrs.shape
+    W, S = ve.ring, t.num_states
+    nbytes = 4 * (2 * Bn * W * S + Tn * Bn * A + Tn * Bn + 2 * Bn
+                  + t.m_all.numel() + t.class_of.numel() + 2 * S)
+    nnz = int((t.m_all != 0).sum(dim=(1, 2)).max())
+    flops = 2 * W * Tn * Bn * (nnz + int((t.finals != 0).sum()))
+    tb, to = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOP_PER_S
+    return {"query": TRAIN_MONITOR, "events": len(stream), "chunk_len": T,
+            "chunks": n_chunks, "launches": launches,
+            "matches": int(host.sum()),
+            "feed_ms": [1e3 * x for x in feed_s],
+            "fused_scan_ms": cuda_ms(run("fused", clone_state(kern.state)),
+                                     reps=20),
+            "fused_scan_plain_ms": cuda_ms(run("ref",
+                                               clone_state(kern.state)),
+                                           reps=3),
+            "fused_scan_bound_ms": 1e3 * max(tb, to),
+            "fused_scan_bound_by": "bytes" if tb >= to else "operations",
+            "fused_scan_max_abs_err": max(max_abs_err(mk, mp),
+                                          max_abs_err(ck, cp))}
+
+
+def train_example() -> dict:
+    """20f: ``examples/torch_train_small.py`` at its default 300 steps on
+    the card exits 0 (its own assert holds the loss's descent).  At 100
+    steps the descent of a loss over fresh random tokens (0.05-0.12 on
+    the CPU in both packages) lies within its per-batch noise."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(ROOT / "examples" /
+                                              "torch_train_small.py")],
+                         env=env, cwd=ROOT, text=True, capture_output=True,
+                         timeout=300)
+    check(out.returncode == 0, f"20f: the example exited "
+          f"{out.returncode}: {out.stdout[-1000:]} {out.stderr[-2000:]}")
+    lines = out.stdout.strip().splitlines()
+    check(len(lines) == 3 and lines[1].startswith("loss: "),
+          f"20f: {lines}")
+    first, final = (float(x) for x in lines[1].split()[1:4:2])
+    check(final < first, f"20f: the loss descends: {lines[1]}")
+    return {"lines": lines, "seconds": time.perf_counter() - t0}
+
+
+def phase_train(seed: int, smi: str) -> dict:
+    """Phase 20: 20a and 20b in processes of their own, 20c (card against
+    the CPU), 20d (the trainer straight, then resumed in a new process,
+    deterministic algorithms on), 20e (the monitor over their STEP
+    events), 20f (the example)."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_train20_",
+                                 dir=ROOT / "build"))
+    secs = {}
+    try:
+        runs = {}
+        for tag in ("20a", "20b", "20c"):
+            t0 = time.perf_counter()
+            runs[tag] = train_worker(tag, seed, work)
+            secs[tag] = time.perf_counter() - t0
+            # each run's line as it ends; the phase's line repeats them
+            emit({"phase": tag, "nvidia_smi": smi, **runs[tag]})
+        # deterministic algorithms: cuBLAS needs its workspace fixed before
+        # it starts, so the variable is set for the processes
+        env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+                   CHIP_SMOKE_DETERMINISTIC="1")
+        t0 = time.perf_counter()
+        d_run = train_worker("20d-run", seed, work, env)
+        d_resume = train_worker("20d-resume", seed, work, env)
+        secs["20d"] = time.perf_counter() - t0
+        straight = [m["loss"] for m in d_run["straight"]["metrics"]]
+        first = [m["loss"] for m in d_run["first"]["metrics"]]
+        resumed = [m["loss"] for m in d_resume["resume"]["metrics"]]
+        check(len(straight) == TRAIN_STEPS and len(first) == 4 and
+              len(resumed) == TRAIN_STEPS - 4, "20d: step counts")
+        check(first + resumed == straight, f"20d: 4 steps, a new process "
+              f"and a resume to 6 ≡ 6 straight: {first + resumed} vs "
+              f"{straight}")
+        check(d_resume["resume"]["report"]["final_step"] == TRAIN_STEPS,
+              "20d: the resume ends at step 6")
+        check(d_run["straight"]["steps_saved"] == [2, 4, 6], f"20d: "
+              f"checkpoints {d_run['straight']['steps_saved']}")
+        events = (runs["20a"]["metrics"] + runs["20b"]["metrics"]
+                  + runs["20c"]["metrics"]
+                  + d_run["straight"]["metrics"]
+                  + d_run["first"]["metrics"]
+                  + d_resume["resume"]["metrics"])
+        events = [{k: v for k, v in m.items() if k != "step"}
+                  for m in events]
+        t0 = time.perf_counter()
+        monitor = train_monitor(events)
+        secs["20e"] = time.perf_counter() - t0
+        emit({"phase": "20e", "nvidia_smi": smi, **monitor})
+        t0 = time.perf_counter()
+        example = train_example()
+        secs["20f"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    result = {"phase": 20, "case": "training on the card: Qwen2.5-14B at "
+              "its published width (8 of 48 layers), Granite-MoE-1B whole, "
+              "an f32 cut against the CPU, the trainer's resume, the "
+              "monitor and the example", "nvidia_smi": smi,
+              "reduced": {"20a": runs["20a"]["reduced"],
+                          "20c": {"num_layers": "48 -> 1",
+                                  "dtype": "bfloat16 -> float32"}},
+              "runs": runs,
+              "trainer": {"losses_straight": straight,
+                          "losses_first": first, "losses_resumed": resumed,
+                          "deterministic": True,
+                          "process_s": [d_run["process_s"],
+                                        d_resume["process_s"]]},
+              "monitor": monitor, "example": example, "seconds": secs}
+    emit(result)
+    return result
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5244,6 +5936,10 @@ def main() -> None:
                         help=argparse.SUPPRESS)
     parser.add_argument("--serve-part", choices=("run", "cut"),
                         default="run", help=argparse.SUPPRESS)
+    # phase 20's subprocesses: one training run
+    parser.add_argument("--train-worker", metavar="PART",
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--train-dir", default="", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not (ROOT / "src" / "repro_torch").is_dir():
         sys.exit("chip_smoke.py runs from a checkout of the repository: "
@@ -5261,6 +5957,11 @@ def main() -> None:
         return
     if args.serve_worker:
         emit(serve_worker_run(args.serve_worker, args.serve_part, args.seed))
+        return
+    if args.train_worker:
+        if os.environ.get("CHIP_SMOKE_DETERMINISTIC"):
+            torch.use_deterministic_algorithms(True)
+        emit(train_worker_run(args.train_worker, args.seed, args.train_dir))
         return
 
     t_main = time.perf_counter()
@@ -5301,6 +6002,8 @@ def main() -> None:
     guards18 = list(fam_res["guards"].values())
     more_res = phase("19 serve, more families", phase_serve_more, seed, smi)
     guards19 = list(more_res["guards"].values())
+    train_res = phase("20 train", phase_train, seed, smi)
+    mon20 = train_res["monitor"]
     emit({"phase_seconds": spans,
           "total_s": time.perf_counter() - t_main})
     unf = unf_res["kernels"]
@@ -5313,11 +6016,13 @@ def main() -> None:
         "replaces": "src/repro/kernels/fused_scan.py:215",
         "launches": main_res["launches"],
         "max_abs_err": max([main_res["max_abs_err"], fleet15_err,
-                            guard17["fused_scan_max_abs_err"]]
+                            guard17["fused_scan_max_abs_err"],
+                            mon20["fused_scan_max_abs_err"]]
                            + [g["fused_scan_max_abs_err"]
                               for g in guards18 + guards19]),
         "max_abs_diff": max([main_res["max_abs_err"], fleet15_err,
-                             guard17["fused_scan_max_abs_err"]]
+                             guard17["fused_scan_max_abs_err"],
+                             mon20["fused_scan_max_abs_err"]]
                             + [g["fused_scan_max_abs_err"]
                                for g in guards18 + guards19]),
         "ms": main_res["kernel_ms_per_chunk"],
@@ -5355,6 +6060,11 @@ def main() -> None:
         "phase19_bound_ms": [g["fused_scan_bound_ms"] for g in guards19],
         "phase19_max_abs_err": max(g["fused_scan_max_abs_err"]
                                    for g in guards19),
+        "phase20_launches": mon20["launches"]["fused_scan"],
+        "phase20_ms": mon20["fused_scan_ms"],
+        "phase20_plain_ms": mon20["fused_scan_plain_ms"],
+        "phase20_bound_ms": mon20["fused_scan_bound_ms"],
+        "phase20_max_abs_err": mon20["fused_scan_max_abs_err"],
         "phase15_buckets": {k: {x: v[x] for x in (
             "S", "NQ", "k", "state_bucket", "n_split", "kernel_ms",
             "plain_ms", "bound_ms", "bound_by")}

@@ -12,6 +12,9 @@ either package loads in the other)::
   restore picks the newest complete directory.
 * **async** — ``save(..., blocking=False)`` copies the tree to host memory
   and writes on a background thread; the caller continues.
+* **bfloat16** — a bfloat16 leaf is written as the reference writes it:
+  its raw 2-byte words in an ``.npy`` of void dtype ``V2``, ``"bfloat16"``
+  in the manifest.
 
 Leaves are flattened depth-first with dict keys sorted and list or tuple
 items by index, named by their path joined with ``/``; ``None`` is an
@@ -31,21 +34,45 @@ import numpy as np
 import torch
 
 
+# bfloat16 on disk: the raw 2-byte words in an ``.npy`` of void dtype,
+# named "bfloat16" in the manifest, as the reference writes them (numpy
+# has no bfloat16 of its own)
+_BF16_WORDS = np.dtype("V2")
+
+
 def _host(leaf) -> np.ndarray:
     """A host numpy array of one leaf (torch tensors are copied off the
-    device; uint32 tensors move as their int32 bits)."""
+    device; uint32 tensors move as their int32 bits, bfloat16 tensors as
+    their raw words)."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         if t.dtype == torch.uint32:
             return t.view(torch.int32).cpu().numpy().view(np.uint32).copy()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).cpu().numpy().view(
+                _BF16_WORDS).copy()
         return t.cpu().numpy().copy()
     return np.asarray(leaf)
+
+
+def _dtype_name(arr: np.ndarray) -> str:
+    return "bfloat16" if arr.dtype == _BF16_WORDS else str(arr.dtype)
 
 
 def _dtype(leaf) -> np.dtype:
     if isinstance(leaf, torch.Tensor):
         return torch.empty(0, dtype=leaf.dtype).numpy().dtype
     return np.asarray(leaf).dtype
+
+
+def _restored(arr: np.ndarray, tmpl):
+    """A checkpoint's array in the template leaf's dtype: a bfloat16 tensor
+    (from the raw words) for a bfloat16 tensor template, else a numpy
+    array."""
+    if isinstance(tmpl, torch.Tensor) and tmpl.dtype == torch.bfloat16:
+        return torch.from_numpy(np.ascontiguousarray(arr).view(
+            np.int16)).view(torch.bfloat16)
+    return arr.astype(_dtype(tmpl)) if hasattr(tmpl, "dtype") else arr
 
 
 def _flatten_with_paths(tree: Any, prefix: Tuple = ()
@@ -122,7 +149,7 @@ class CheckpointManager:
             np.save(os.path.join(tmp, f"arr_{i}.npy"), arr)
             manifest["leaves"].append(
                 {"key": key, "file": f"arr_{i}.npy",
-                 "shape": list(arr.shape), "dtype": str(arr.dtype)})
+                 "shape": list(arr.shape), "dtype": _dtype_name(arr)})
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
         with self._io_lock:
@@ -173,7 +200,10 @@ class CheckpointManager:
     def restore(self, template: Any, step: Optional[int] = None
                 ) -> Tuple[Any, Dict]:
         """Restore into the structure of ``template`` (shapes must match);
-        the leaves come back as numpy arrays of the template's dtypes."""
+        the leaves come back as numpy arrays of the template's dtypes,
+        except that a bfloat16 tensor leaf comes back as a bfloat16
+        tensor on the CPU (numpy has no bfloat16) and a numpy leaf of
+        void dtype ``V2`` as the raw bfloat16 words."""
         arrays, extra = self.load_arrays(step)
         restored = []
         for key, tmpl in _flatten_with_paths(template):
@@ -185,8 +215,7 @@ class CheckpointManager:
             if tuple(arr.shape) != tuple(want):
                 raise ValueError(f"shape mismatch for {key}: "
                                  f"{arr.shape} vs {tuple(want)}")
-            restored.append(arr.astype(_dtype(tmpl)) if hasattr(tmpl, "dtype")
-                            else arr)
+            restored.append(_restored(arr, tmpl))
         return _unflatten(template, restored), extra
 
 
@@ -199,7 +228,9 @@ class LaneShard:
     axis: int = 0
 
 
-def _tensor(arr: np.ndarray) -> torch.Tensor:
+def _tensor(arr) -> torch.Tensor:
+    if isinstance(arr, torch.Tensor):
+        return arr
     arr = np.ascontiguousarray(arr)
     if arr.dtype == np.uint32:
         return torch.from_numpy(arr.view(np.int32)).view(torch.uint32)

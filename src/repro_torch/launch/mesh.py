@@ -1,4 +1,5 @@
-"""Process groups of the sharded stream engine on ``torch.distributed``.
+"""Process groups of the sharded stream engine, and the LM's model mesh,
+on ``torch.distributed``.
 
 The counterpart of the reference package's mesh module.  JAX is
 single-controller: one program splits a global array over a ``Mesh``.
@@ -13,6 +14,14 @@ The reference's production meshes (a 16×16 TPU pod, two pods joined over
 the data-centre network) do not carry over.  A group here is flat: one
 rank per GPU of the job, NCCL between the GPUs, or gloo on the CPU.
 
+The LM's MoE layers need the reference's named axes instead:
+:class:`ModelMesh` (``data`` and ``model``, ``pod`` across pods) with
+``axis_index``, ``psum``, ``pmean`` and ``all_gather`` over one axis, from
+sub-groups of the job's group (:func:`init_model_mesh`), or of one rank
+with no group at all (:func:`host_model_mesh`, the reference's
+``make_host_mesh()``).  :func:`use_model_mesh` enters one, as
+``jax.set_mesh`` does.
+
 Groups are initialised through a ``file://`` store at a path the caller
 gives (a path that does not exist yet, on a file system every rank
 sees), so concurrent jobs on one host never race for a TCP port, and
@@ -21,7 +30,9 @@ others instead of hanging them.
 """
 from __future__ import annotations
 
+import math
 import os
+from contextlib import contextmanager
 from dataclasses import dataclass
 from datetime import timedelta
 from typing import List, Optional
@@ -134,3 +145,137 @@ def make_production_mesh(store: str, *, device: Optional[str] = None,
     return init_stream_group(store, rank=rank, world_size=world,
                              backend="nccl", device=f"cuda:{local}",
                              timeout=timeout)
+
+
+# ---------------------------------------------------------------------------
+# the model mesh: named axes for the LM's expert-parallel MoE paths
+# ---------------------------------------------------------------------------
+
+
+class ModelMesh:
+    """The reference's ``("data", "model")`` mesh (``("pod", "data",
+    "model")`` across pods) on ``torch.distributed``, as one rank sees it.
+
+    Rank ``r`` sits at the row-major coordinates of ``shape``, the order
+    in which the reference lays devices on its mesh, so rank ``d·M + m``
+    of a ``data × model = D × M`` mesh is at ``(d, m)``.  Each axis of
+    more than one rank has a process group of the ranks that differ from
+    this one along that axis only; an axis of size 1 has none, and its
+    collectives are the identity, so a mesh of one rank runs on one card
+    or on the CPU with nothing initialised.  Collectives go through
+    ``torch.distributed.nn.functional``, which carries gradients."""
+
+    def __init__(self, shape, rank: int = 0, groups=None):
+        self.shape = dict(shape)
+        self.axis_names = tuple(self.shape)
+        self.rank = rank
+        self.groups = dict(groups or {})
+        coords, rest = {}, rank
+        for name in reversed(self.axis_names):
+            coords[name] = rest % self.shape[name]
+            rest //= self.shape[name]
+        if rest:
+            raise ValueError(f"rank {rank} outside a mesh of shape "
+                             f"{self.shape}")
+        self.coords = coords
+        for name, n in self.shape.items():
+            if n > 1 and self.groups.get(name) is None:
+                raise ValueError(f"axis {name!r} of {n} ranks needs a "
+                                 f"process group")
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def axis_size(self, name: str) -> int:
+        return self.shape[name]
+
+    def axis_index(self, name: str) -> int:
+        return self.coords[name]
+
+    def psum(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        """The sum of ``x`` over the ranks of axis ``name``."""
+        if self.shape[name] == 1:
+            return x
+        from torch.distributed.nn import functional as dfn
+        return dfn.all_reduce(x, group=self.groups[name])
+
+    def pmean(self, x: torch.Tensor, names) -> torch.Tensor:
+        """The mean of ``x`` over the ranks of the axes ``names``."""
+        n = 1
+        for name in names:
+            x = self.psum(x, name)
+            n *= self.shape[name]
+        return x / n if n > 1 else x
+
+    def all_gather(self, x: torch.Tensor, name: str, dim: int = 0
+                   ) -> torch.Tensor:
+        """Every rank's ``x`` along axis ``name``, concatenated on ``dim``
+        in the order of the axis (the reference's ``tiled`` gather)."""
+        if self.shape[name] == 1:
+            return x
+        from torch.distributed.nn import functional as dfn
+        parts = dfn.all_gather(x.contiguous(), group=self.groups[name])
+        return torch.cat(list(parts), dim=dim)
+
+
+def host_model_mesh() -> ModelMesh:
+    """The mesh of one rank, ``data`` 1 × ``model`` 1: the reference's
+    ``make_host_mesh()``, which both of its launchers enter."""
+    return ModelMesh({"data": 1, "model": 1})
+
+
+def init_model_mesh(shape, rank: int) -> ModelMesh:
+    """A mesh of ``shape`` (ordered ``{axis: size}``) over the job's
+    default process group, which must hold exactly that many ranks when
+    the mesh has more than one.  Every rank calls it, with the same shape:
+    the process groups of every line of every axis are made in one
+    order."""
+    shape = dict(shape)
+    names = list(shape)
+    n = math.prod(shape.values())
+    if n == 1:
+        return ModelMesh(shape, 0)
+    if dist.get_world_size() != n:
+        raise ValueError(f"a mesh of {n} ranks over a world of "
+                         f"{dist.get_world_size()}")
+    strides, s = {}, 1
+    for name in reversed(names):
+        strides[name] = s
+        s *= shape[name]
+    groups = {}
+    for name in names:
+        if shape[name] == 1:
+            continue
+        others = [a for a in names if a != name]
+        # one line of the axis for each coordinate of the other axes
+        for flat in range(n // shape[name]):
+            base, rest = 0, flat
+            for a in reversed(others):
+                base += (rest % shape[a]) * strides[a]
+                rest //= shape[a]
+            ranks = [base + i * strides[name] for i in range(shape[name])]
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                groups[name] = g
+    return ModelMesh(shape, rank, groups)
+
+
+_MESHES: List[ModelMesh] = []
+
+
+@contextmanager
+def use_model_mesh(mesh: Optional[ModelMesh]):
+    """Run the LM under ``mesh`` (the reference's ``jax.set_mesh``): MoE
+    layers then take the expert-parallel paths.  ``None`` leaves the model
+    off the mesh."""
+    _MESHES.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _MESHES.pop()
+
+
+def current_model_mesh() -> Optional[ModelMesh]:
+    """The innermost mesh entered by :func:`use_model_mesh`, or None."""
+    return _MESHES[-1] if _MESHES else None

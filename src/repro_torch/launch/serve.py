@@ -15,8 +15,13 @@ guard, a CEQL query ``PARTITION BY [lane]``; its matches surface as
 guardrail hits beside the generated tokens.
 
 The model runs on the CUDA device unless ``--device cpu`` asks for the CPU,
-and raises without a card.  ``--smoke`` takes the arch's reduced config;
-without it the published config runs whole on one card, with no mesh
+and raises without a card.  The model runs under the mesh of one rank
+(``data`` 1 × ``model`` 1), as the reference's launcher runs under
+``make_host_mesh()``, so MoE layers take its expert-parallel paths: at
+512 tokens or fewer (the prefill of 4 × 8, every decode step) the
+weights-stationary pass, which drops no token-choice.  ``--smoke`` takes
+the arch's reduced config; without it the published config runs whole on
+one card
 (Qwen2.5-14B in bf16 holds 29.5 GB of weights; Granite-MoE-1B,
 Zamba2-2.7B and RWKV6-1.6B 2.7-4.1 GB; Whisper-base 0.29 GB in float32;
 InternVL2-1B 0.99 GB).  Every arch of the registry runs; DeepSeek-V3's
@@ -49,6 +54,7 @@ from ..core import Event, compile_query
 from ..models import init_params, make_serve_step, prefill
 from ..models.config import ModelConfig
 from ..vector.engine import resolve_device
+from .mesh import host_model_mesh, use_model_mesh
 
 DEFAULT_GUARD = """
 SELECT * FROM Tokens
@@ -247,8 +253,11 @@ def main(argv=None) -> dict:
             else:
                 fired += len(guard.process(Event("TOK", attrs)))
 
-    run = generate(model, cfg, prompt, args.tokens, frontend=frontend,
-                   on_step=on_step)
+    # the mesh of one rank, as the reference's launcher enters
+    # make_host_mesh(): MoE layers take its expert-parallel paths
+    with use_model_mesh(host_model_mesh()):
+        run = generate(model, cfg, prompt, args.tokens, frontend=frontend,
+                       on_step=on_step)
     out = {"events": events, "run": run}
     if svc is not None:
         svc.drain(pad=True)

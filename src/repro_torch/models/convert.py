@@ -1,5 +1,7 @@
 """Weights carried across packages: the reference's ``init_params`` tree
-(as numpy arrays) into the port's :class:`~repro_torch.models.stack.Stack`.
+(as numpy arrays) into the port's :class:`~repro_torch.models.stack.Stack`,
+and the port's per-layer tensors (weights, gradients, moments) back into
+the reference's tree.
 
 The reference stacks each segment's layers along a leading axis
 (``segments[s][...]`` of shape ``(count, ...)``); the port keeps one
@@ -18,7 +20,7 @@ stay float32.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -28,7 +30,8 @@ from .config import SHARED_ATTN, ModelConfig
 from .stack import Stack
 
 
-def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
+def _flatten(tree, prefix="") -> Dict[str, object]:
+    """A nested tree of dicts and lists → its leaves by dotted path."""
     if isinstance(tree, dict):
         out = {}
         for k, v in tree.items():
@@ -39,7 +42,7 @@ def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
         for i, v in enumerate(tree):
             out.update(_flatten(v, f"{prefix}{i}."))
         return out
-    return {prefix[:-1]: np.asarray(tree)}
+    return {prefix[:-1]: tree}
 
 
 def _unstack(flat: Dict[str, np.ndarray], cfg: ModelConfig
@@ -84,7 +87,8 @@ def params_from_jax(tree, cfg: ModelConfig, device=None) -> Stack:
     dev = resolve_device(device)
     model = Stack(cfg, None, dev)
     want = dict(model.named_parameters())
-    got = _unstack(_flatten(tree), cfg)
+    got = _unstack({k: np.asarray(v) for k, v in _flatten(tree).items()},
+                   cfg)
     missing = sorted(set(want) - set(got))
     extra = sorted(set(got) - set(want))
     if missing or extra:
@@ -100,3 +104,111 @@ def params_from_jax(tree, cfg: ModelConfig, device=None) -> Stack:
                 arr = arr.astype(np.float32)       # bfloat16 and the like
             param.copy_(torch.tensor(arr))
     return model
+
+
+# ---------------------------------------------------------------------------
+# the other way: the port's per-layer tensors into the reference's tree
+# ---------------------------------------------------------------------------
+
+
+def leaf_map(cfg: ModelConfig, names) -> Dict[str, Tuple[str, int]]:
+    """Each port parameter name → (the reference leaf it belongs to, its
+    layer along that leaf's stacked axis, or -1 for a leaf that is not
+    stacked).  ``blocks.j.<leaf>`` is layer ``j - offset(s)`` of
+    ``segments.s.<leaf>``; ``encoder.blocks.i.<leaf>`` layer ``i`` of
+    ``encoder.blocks.<leaf>``; every other name (the embedding, norms
+    outside the segments, ``lm_head``, ``shared_block``, ``mtp``,
+    ``frontend_proj``) is its own reference leaf."""
+    seg_of = []
+    for s, (kind, _moe, count) in enumerate(cfg.segments()):
+        if kind != SHARED_ATTN:
+            seg_of += [(s, i) for i in range(count)]
+    out = {}
+    for name in names:
+        parts = name.split(".")
+        if parts[:2] == ["encoder", "blocks"]:
+            out[name] = ("encoder.blocks." + ".".join(parts[3:]),
+                         int(parts[2]))
+        elif parts[0] == "blocks":
+            s, i = seg_of[int(parts[1])]
+            out[name] = (f"segments.{s}." + ".".join(parts[2:]), i)
+        else:
+            out[name] = (name, -1)
+    return out
+
+
+def reference_ndim(cfg: ModelConfig, tensors: Dict[str, torch.Tensor]
+                   ) -> Dict[str, int]:
+    """The rank of each tensor's reference leaf: one more than its own
+    where the reference stacks it along a layer axis."""
+    where = leaf_map(cfg, tensors)
+    return {n: t.dim() + (where[n][1] >= 0) for n, t in tensors.items()}
+
+
+def to_reference_tree(cfg: ModelConfig, tensors: Dict[str, torch.Tensor]
+                      ) -> dict:
+    """A dict of the port's per-parameter tensors (the parameters, or
+    their gradients, moments or error feedback) → the reference's nested
+    tree of tensors, every stacked leaf stacked on a new leading axis in
+    layer order; a shared-attention segment's entry is an empty dict, as
+    in the reference."""
+    where = leaf_map(cfg, tensors)
+    stacks: Dict[str, list] = {}
+    flat: Dict[str, torch.Tensor] = {}
+    for name, t in tensors.items():
+        ref, layer = where[name]
+        if layer < 0:
+            flat[ref] = t
+        else:
+            stacks.setdefault(ref, []).append((layer, t))
+    for ref, items in stacks.items():
+        flat[ref] = torch.stack([t for _, t in sorted(items,
+                                                      key=lambda it: it[0])])
+    tree: dict = {}
+    for ref, t in flat.items():
+        node = tree
+        parts = ref.split(".")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = t
+    segs = tree.get("segments", {})
+    tree["segments"] = [segs.get(str(s), {})
+                        for s in range(len(cfg.segments()))]
+    return tree
+
+
+def from_reference_tree(cfg: ModelConfig, tree, names) -> Dict[str, object]:
+    """The inverse of :func:`to_reference_tree`: the reference's tree (of
+    arrays or tensors) → each of ``names``' leaf, one layer of a stacked
+    leaf indexed off its leading axis."""
+    flat = _flatten(tree)
+    out = {}
+    for name, (ref, layer) in leaf_map(cfg, names).items():
+        if ref not in flat:
+            raise KeyError(f"the reference tree has no leaf {ref!r}")
+        out[name] = flat[ref] if layer < 0 else flat[ref][layer]
+    return out
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()               # exact: every bf16 value is an f32
+    return t.cpu().numpy()
+
+
+def params_to_jax(model: Stack, cfg: ModelConfig) -> dict:
+    """The inverse of :func:`params_from_jax`: the model's weights as the
+    reference's ``init_params`` tree of numpy arrays, each segment's
+    layers stacked (bfloat16 widened to float32, exactly)."""
+    named = {n: p for n, p in model.named_parameters()}
+    return tree_to_numpy(to_reference_tree(cfg, named))
+
+
+def tree_to_numpy(tree):
+    """A nested tree of tensors → the same tree of numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to_numpy(v) for v in tree]
+    return _numpy(tree)

@@ -18,9 +18,21 @@ CPU the last write of a repeated index wins, so an expert that overflows
 gives nothing to the token in its last slot
 (``tests/test_torch_moe.py::test_overflow_keeps_every_slot_below_cap``).
 
-The expert-parallel ``shard_map`` paths of the reference (``_moe_sharded``,
-``_local_expert_pass``, ``_moe_decode_stationary``) belong to a multi-card
-slice (ROADMAP Queue 1 item 9).
+Under a :class:`~repro_torch.launch.mesh.ModelMesh` with a ``model`` axis
+(:func:`~repro_torch.launch.mesh.use_model_mesh`, which both launchers
+enter with the mesh of one rank, as the reference's enter
+``make_host_mesh()``) ``moe_apply`` takes the reference's expert-parallel
+paths instead, on ``torch.distributed``: at most 512 tokens over the
+mesh, SwiGLU and a ``data`` axis that divides ``d_model``, the
+weights-stationary pass (``_moe_decode_stationary``: every token reaches
+every chosen expert, with no capacity); otherwise the sharded pass
+(``_moe_sharded`` over ``_local_expert_pass``: capacity from the rank's
+own token count, kept choices in their slots, the rest in a trash slot).
+Each rank holds its block of the batch over the batch axes, the same on
+every rank of a ``model`` line, and returns the same block of ``y``;
+expert weights are read whole (each rank slices its experts, and in the
+stationary pass its ``d_model`` slice).  On one rank every collective is
+the identity, so what the mesh changes there is the capacity rule.
 """
 from __future__ import annotations
 
@@ -30,6 +42,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..launch.mesh import current_model_mesh
 from .config import ModelConfig
 from .layers import (ParamTree, Params, dense_init, mlp, mlp_init, normal)
 
@@ -94,7 +107,18 @@ def route(p: Params, cfg: ModelConfig, xf: torch.Tensor):
 
 def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) → (y, aux_loss), the reference's ``_moe_global``."""
+    """x: (B, S, d) → (y, aux_loss): on a mesh with a ``model`` axis the
+    expert-parallel paths, else ``_moe_global`` (the reference's
+    dispatch, ``moe.py:64-86``)."""
+    mesh = current_model_mesh()
+    if mesh is not None and "model" in mesh.axis_names:
+        return _moe_sharded(p, cfg, x, mesh)
+    return _moe_global(p, cfg, x)
+
+
+def _moe_global(p: Params, cfg: ModelConfig, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The off-mesh path over all ``B·S`` tokens."""
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
@@ -148,6 +172,224 @@ def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor
     frac_probs = probs.mean(dim=0)
     aux = E * torch.sum(frac_tokens * frac_probs) * m.router_aux_weight
     return y.reshape(B, S, d), aux
+
+
+def _aux_loss(cfg: ModelConfig, probs, choices) -> torch.Tensor:
+    """The load-balancing loss from the choices' one-hot counts."""
+    m = cfg.moe
+    E = m.num_experts
+    counts = F.one_hot(choices, E).float().sum(dim=(0, 1))
+    frac_tokens = counts / float(choices.shape[0] * m.top_k)
+    frac_probs = probs.mean(dim=0)
+    return E * torch.sum(frac_tokens * frac_probs) * m.router_aux_weight
+
+
+# ---------------------------------------------------------------------------
+# the expert-parallel paths (the reference's shard_map bodies, SPMD)
+# ---------------------------------------------------------------------------
+
+# At most this many tokens over the mesh (decode, small serving batches),
+# the weights stay where they are and the tokens are replicated: the
+# reference's _TOKEN_STATIONARY_MAX.
+TOKEN_STATIONARY_MAX = 512
+
+
+def _experts(p: Params, name: str, e_lo: int, E_local: int,
+             d_axis: int = -1, d_lo: int = 0, d_sh: int = 0):
+    """This rank's block of the stacked expert weight ``name``: experts
+    ``[e_lo, e_lo + E_local)`` and, given ``d_sh``, ``d_model`` rows or
+    columns ``[d_lo, d_lo + d_sh)`` on axis ``d_axis``.  A weight that
+    already holds only the block (its leading axis ``E_local``) is taken
+    as it is."""
+    w = p[name]
+    if w.shape[0] != E_local:
+        w = w[e_lo:e_lo + E_local]
+    if d_sh and w.shape[d_axis] != d_sh:
+        w = w.narrow(d_axis, d_lo, d_sh)
+    return w
+
+
+def _batch_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def _batch_index(mesh, axes) -> int:
+    """This rank's block of the batch over ``axes`` (row-major)."""
+    idx = 0
+    for a in axes:
+        idx = idx * mesh.axis_size(a) + mesh.axis_index(a)
+    return idx
+
+
+def _gather_batch(mesh, x, axes):
+    """The batch blocks of every rank over ``axes``, in order."""
+    for a in reversed(axes):
+        x = mesh.all_gather(x, a, dim=0)
+    return x
+
+
+def moe_path(cfg: ModelConfig, B: int, S: int, mesh=None):
+    """Which path ``moe_apply`` takes for a rank's block of ``B`` × ``S``
+    tokens under ``mesh`` (None: off the mesh), and the capacity it gives
+    an expert: ``("global", cap)`` over all tokens, ``("sharded", cap)``
+    from the rank's own tokens, or ``("stationary", None)``, which drops
+    nothing."""
+    if mesh is None or "model" not in mesh.axis_names:
+        return "global", capacity(cfg, B * S)
+    n_b = math.prod(mesh.axis_size(a) for a in _batch_axes(mesh))
+    if cfg.moe.num_experts % mesh.axis_size("model"):
+        return "global", capacity(cfg, B * n_b * S)
+    if (B * n_b * S <= TOKEN_STATIONARY_MAX and cfg.mlp == "swiglu"
+            and "data" in mesh.axis_names
+            and cfg.d_model % mesh.axis_size("data") == 0):
+        return "stationary", None
+    return "sharded", capacity(cfg, B * S)
+
+
+def _local_expert_pass(p: Params, cfg: ModelConfig, xf: torch.Tensor,
+                       gate_vals: torch.Tensor, choices: torch.Tensor,
+                       e_lo: int, E_local: int) -> torch.Tensor:
+    """The rank's tokens routed to experts ``[e_lo, e_lo + E_local)``:
+    dispatch, the local expert FFNs, the gated combine.  Capacity from the
+    rank's own token count; kept choices only are written to their slots,
+    the rest (other ranks' experts, overflow) to a trash slot.  The caller
+    sums over the ``model`` axis."""
+    m = cfg.moe
+    T, d = xf.shape
+    k = m.top_k
+    dev = xf.device
+    cap = capacity(cfg, T)
+
+    flat_e = choices.reshape(T * k) - e_lo                  # local ids
+    local = (flat_e >= 0) & (flat_e < E_local)
+    flat_e = torch.where(local, flat_e, E_local)            # overflow bin
+    flat_tok = torch.arange(T * k, device=dev) // k
+    sorted_e, order = torch.sort(flat_e, stable=True)
+    counts = torch.zeros(E_local + 1, dtype=torch.long,
+                         device=dev).scatter_add_(0, flat_e,
+                                                  torch.ones_like(flat_e))
+    starts = torch.cumsum(counts, 0) - counts
+    pos_sorted = torch.arange(T * k, device=dev) - starts[sorted_e]
+    keep_sorted = (pos_sorted < cap) & (sorted_e < E_local)
+    slot_sorted = torch.where(keep_sorted, sorted_e * cap + pos_sorted,
+                              E_local * cap)                # trash slot
+    slot_tok = torch.full((E_local * cap + 1,), T, dtype=torch.long,
+                          device=dev)
+    slot_tok[slot_sorted] = torch.where(keep_sorted, flat_tok[order], T)
+    slot_tok = slot_tok[:E_local * cap]
+
+    x_pad = torch.cat([xf, xf.new_zeros((1, d))], dim=0)
+    expert_in = x_pad[slot_tok].reshape(E_local, cap, d)
+    local_p = {n: _experts(p, n, e_lo, E_local)
+               for n in ("wi", "wg", "wo") if n in p}
+    expert_out = _expert_ffn(local_p, expert_in, cfg.mlp).reshape(
+        E_local * cap, d)
+    expert_out = torch.cat([expert_out, expert_out.new_zeros((1, d))],
+                           dim=0)
+
+    # combine: inverse permutation → slot per (token, choice)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(T * k, device=dev)
+    pos = pos_sorted[inv]
+    kept = (pos < cap) & local
+    slot = torch.where(kept, flat_e * cap + pos, E_local * cap)
+    slot2, kept2 = slot.reshape(T, k), kept.reshape(T, k)
+    y = torch.zeros_like(xf)
+    for i in range(k):  # in order, as the reference adds them
+        contrib = expert_out[slot2[:, i]]
+        w = (gate_vals[:, i] * kept2[:, i]).to(xf.dtype)
+        y = y + contrib * w[:, None]
+    return y
+
+
+def _moe_sharded(p: Params, cfg: ModelConfig, x: torch.Tensor, mesh
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The expert-parallel pass (the reference's ``_moe_sharded``), or the
+    stationary pass where the dispatch rule takes it.  ``x`` is this
+    rank's batch block."""
+    m = cfg.moe
+    B, S, d = x.shape
+    path, _ = moe_path(cfg, B, S, mesh)
+    axes = _batch_axes(mesh)
+    if path == "global":
+        # experts that the model axis does not divide: the global path
+        # over every rank's tokens, then this rank's block
+        y, aux = _moe_global(p, cfg, _gather_batch(mesh, x, axes))
+        b0 = _batch_index(mesh, axes) * B
+        return y[b0:b0 + B], aux
+    if path == "stationary":
+        return _moe_decode_stationary(p, cfg, x, mesh)
+    E_local = m.num_experts // mesh.axis_size("model")
+    xf = x.reshape(B * S, d)
+    probs, gate_vals, choices = route(p, cfg, xf)
+    e_lo = mesh.axis_index("model") * E_local
+    y = _local_expert_pass(p, cfg, xf, gate_vals, choices, e_lo, E_local)
+    # the experts of the other model ranks
+    y = mesh.psum(y, "model")
+    if m.num_shared_experts:
+        y = y + mlp(p["shared"], xf, cfg.mlp)
+    aux = _aux_loss(cfg, probs, choices)
+    if axes:
+        aux = mesh.pmean(aux, axes)
+    return y.reshape(B, S, d), aux
+
+
+def _moe_decode_stationary(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                           mesh) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The weights-stationary pass (the reference's
+    ``_moe_decode_stationary``): the tokens of every batch block gathered
+    on each rank; rank ``(data i, model j)`` holds experts ``j·E_l`` to
+    ``(j+1)·E_l`` with ``wi``/``wg`` rows and ``wo`` columns of its
+    ``d_model`` slice ``i``; it contracts its slice for every token, the
+    partial hiddens are summed over ``data`` before the SiLU, the gated
+    outputs over ``model``, and the slices gathered over ``data``.  No
+    capacity: every token-choice reaches its expert."""
+    m = cfg.moe
+    E, k = m.num_experts, m.top_k
+    B, S, d = x.shape
+    model_size, data_size = mesh.axis_size("model"), mesh.axis_size("data")
+    E_local = E // model_size
+    axes = _batch_axes(mesh)
+    x_full = _gather_batch(mesh, x, axes)                   # replicated
+    Bf = x_full.shape[0]
+    T = Bf * S
+    xf = x_full.reshape(T, d)
+    probs, gate_vals, choices = route(p, cfg, xf)
+
+    e_lo = mesh.axis_index("model") * E_local
+    d_sh = d // data_size
+    d_lo = mesh.axis_index("data") * d_sh
+    # dense per-expert token weights (T small): (E_local, T), the k
+    # choices added in order
+    experts = torch.arange(E_local, device=x.device)
+    w_et = torch.zeros((E_local, T), dtype=torch.float32, device=x.device)
+    for i in range(k):
+        onehot = ((choices[:, i] - e_lo)[:, None] == experts).float()
+        w_et = w_et + onehot.T * gate_vals[:, i][None, :]
+    wg = _experts(p, "wg", e_lo, E_local, 1, d_lo, d_sh)
+    wi = _experts(p, "wi", e_lo, E_local, 1, d_lo, d_sh)
+    wo = _experts(p, "wo", e_lo, E_local, 2, d_lo, d_sh)
+    x_slice = xf[:, d_lo:d_lo + d_sh]
+    # partial hiddens for every (expert, token) over the local d-slice,
+    # completed over data before the SiLU: batched products over the
+    # experts (the reference's einsum "td,edf->etf"), which read each
+    # expert's weights in place
+    xe = x_slice.to(wg.dtype).expand(E_local, T, d_sh)
+    hg = mesh.psum(torch.bmm(xe, wg), "data")
+    hi = mesh.psum(torch.bmm(xe.to(wi.dtype), wi), "data")
+    h = F.silu(hg) * hi
+    # "etf,efd,et->td": one product contracting experts and d_ff
+    # together, wo read in place as (E_local·d_ff, d_sh)
+    hw = (h * w_et.to(h.dtype)[:, :, None]).transpose(0, 1)
+    y_slice = hw.reshape(T, -1) @ wo.reshape(-1, wo.shape[-1])
+    y_slice = mesh.psum(y_slice, "model")
+    y = mesh.all_gather(y_slice, "data", dim=1)             # (T, d)
+    if m.num_shared_experts:
+        y = y + mlp(p["shared"], xf, cfg.mlp)
+    aux = _aux_loss(cfg, probs, choices)
+    # this rank's block of the batch
+    b0 = _batch_index(mesh, axes) * B
+    return y.reshape(Bf, S, d)[b0:b0 + B], aux
 
 
 class MoE(ParamTree):

@@ -25,9 +25,13 @@ Whisper's ``cross_kv``, Mamba2's ``conv``/``state``, RWKV6's
 ``x_prev``/``state``/``cmix_x_prev``), a shared-attention invocation's
 ``k``/``v`` unstacked ``(B, S_max, KV, D)``.
 
-Public API (the reference's, forward only):
+Public API (the reference's):
     init_params(cfg, seed, device=None)          -> (model, axes)
     forward_train(model, cfg, batch)             -> (logits, aux, mtp_logits)
+
+``forward_train`` carries gradients (the train step's forward) and, with
+``cfg.remat``, recomputes each block in the backward pass; ``prefill``
+and ``decode_step`` run under ``torch.inference_mode``.
     prefill(model, cfg, batch)                   -> (logits, caches)
     decode_step(model, cfg, token, caches, i)    -> (logits, caches)
 
@@ -42,6 +46,7 @@ from typing import Any, Dict, List, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..vector.engine import resolve_device
 from . import rwkv as rwkv_mod
@@ -256,6 +261,15 @@ def _store_layer(tree, i: int, new):
     return tree
 
 
+def run_block(cfg: ModelConfig, blk: Block, x, enc_out=None,
+              causal: bool = True):
+    """One block's training forward → (x, aux), under activation
+    checkpointing when ``cfg.remat`` asks for it and gradients are on."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(blk, x, enc_out, causal, use_reentrant=False)
+    return blk(x, enc_out, causal)
+
+
 class Encoder(nn.Module):
     """Whisper's encoder: ``blocks`` (attention blocks without cross,
     run bidirectionally) and ``final_norm``."""
@@ -278,7 +292,7 @@ class Encoder(nn.Module):
         not projected → the encoder's output."""
         x = frames.to(self.cfg.activation_dtype)
         for blk in self.blocks:
-            x, _ = blk(x, causal=False)
+            x, _ = run_block(self.cfg, blk, x, None, causal=False)
         return rmsnorm(self.final_norm, x, self.cfg.norm_eps)
 
 
@@ -388,17 +402,22 @@ class Stack(nn.Module):
             logits = logits.masked_fill(col >= cfg.vocab_size, -1e9)
         return logits
 
-    @torch.inference_mode()
     def forward(self, batch):
         """Teacher-forcing forward over the batch dict → (logits (B, S*,
-        V), the summed MoE aux, the MTP logits or None)."""
+        V), the summed MoE aux, the MTP logits or None).  Gradients flow
+        unless the caller turns them off; with ``cfg.remat`` each block
+        (the encoder's too) keeps only its input for the backward pass and
+        recomputes the rest, as the reference's ``jax.checkpoint`` does."""
         x = self.embed_inputs(batch)
         enc_out = self.encode(batch)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for _shared, seg in self.segment_blocks():
+        for shared, seg in self.segment_blocks():
             seg_aux = torch.zeros_like(aux)
             for blk in seg:
-                x, a = blk(x, enc_out)
+                # a stacked segment's blocks are rematerialised, the
+                # shared block is not (the reference's _scan_segment)
+                x, a = (blk(x, enc_out) if shared else
+                        run_block(self.cfg, blk, x, enc_out))
                 seg_aux = seg_aux + a
             aux = aux + seg_aux
         logits = self.logits(x)
@@ -473,9 +492,9 @@ def _same_config(model: Stack, cfg: ModelConfig) -> None:
 
 def forward_train(model: Stack, cfg: ModelConfig, batch):
     """batch: {tokens (B,S), [patches|frames]} → (logits (B,S*,V), aux,
-    mtp_logits) — forward only (no loss, no remat); ``aux`` is the MoE
-    layers' summed load-balancing loss, zero without MoE; ``mtp_logits``
-    None without MTP."""
+    mtp_logits), with gradients unless the caller turns them off; ``aux``
+    is the MoE layers' summed load-balancing loss, zero without MoE;
+    ``mtp_logits`` None without MTP."""
     _same_config(model, cfg)
     return model(batch)
 

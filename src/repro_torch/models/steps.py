@@ -1,19 +1,165 @@
-"""serve_step / prefill_step — the reference's ``models/steps.py`` for
-serving: one decode step against a KV or state cache, the prompt's
-prefill, and zeroed caches at a target length.  The train step, the loss and
-``init_train_state`` come with the training slice (ROADMAP Queue 1 item
-8(b))."""
+"""train_step / serve_step — the reference's ``models/steps.py`` on
+PyTorch: the loss and one AdamW step (forward, backward, optional int8
+gradient compression with error feedback, clip, update), one decode step
+against a KV or state cache, the prompt's prefill, and zeroed caches at a
+target length.
+
+The train state is ``{"params": Stack, "opt": {"mu", "nu", "step"},
+"err"?}``: ``mu``, ``nu`` and ``err`` hold one tensor per parameter, keyed
+by the parameter's name, and the update writes the model's parameters and
+the moments in place.  :func:`state_tree` gives the state in the
+reference's tree (each segment's layers stacked), which is what a
+checkpoint holds, and :func:`load_state_tree` reads such a tree back.
+"""
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
+from ..optim import (AdamWConfig, adamw_init, adamw_update,
+                     compress_gradients, decompress_gradients)
 from .config import ATTN, MAMBA2, RWKV6, SHARED_ATTN, ModelConfig
+from .convert import (from_reference_tree, leaf_map, reference_ndim,
+                      to_reference_tree)
 from .rwkv import _dims as _rwkv_dims
 from .ssm import _dims as _ssm_dims
 from .stack import decode_step as _decode
-from .stack import prefill
+from .stack import forward_train, init_params, prefill
+
+MTP_WEIGHT = 0.1
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean negative log-likelihood of ``targets`` under ``logits`` (in
+    float32), over the positions ``mask`` keeps."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, targets[..., None].long())[..., 0]
+    if mask is not None:
+        return -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return -torch.mean(ll)
+
+
+def loss_fn(model, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, Dict]:
+    """(loss, metrics): next-token cross entropy over the token region
+    (a frontend's prefix cut off), plus the MoE aux loss, plus
+    ``MTP_WEIGHT`` × the MTP loss (predicting token t+2 from position
+    t)."""
+    logits, aux, mtp_logits = forward_train(model, cfg, batch)
+    tokens = batch["tokens"]
+    S_tok = tokens.shape[1]
+    logits_tok = logits[:, -S_tok:, :]
+    loss = cross_entropy(logits_tok[:, :-1], tokens[:, 1:])
+    metrics = {"ce": loss, "aux": aux}
+    loss = loss + aux
+    if mtp_logits is not None:
+        mtp_tok = mtp_logits[:, -S_tok:, :]
+        mtp_loss = cross_entropy(mtp_tok[:, :-2], tokens[:, 2:])
+        metrics["mtp"] = mtp_loss
+        loss = loss + MTP_WEIGHT * mtp_loss
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                    compress: bool = False):
+    """Returns train_step(state, batch) -> (state, metrics), metrics the
+    reference's (``ce``, ``aux``, ``mtp`` with MTP, ``loss``,
+    ``grad_norm``, ``lr``) as 0-d tensors.  With ``compress`` the
+    gradients go through int8 with error feedback (one scale per reference
+    leaf) before the update.  Decay follows each parameter's reference
+    rank."""
+    cache: Dict[str, Any] = {}
+
+    def train_step(state, batch):
+        model = state["params"]
+        params = dict(model.named_parameters())
+        if not cache:
+            cache["ndim"] = reference_ndim(cfg, params)
+            cache["groups"] = {n: ref for n, (ref, _) in
+                               leaf_map(cfg, params).items()}
+        for p in params.values():
+            p.grad = None
+        loss, metrics = loss_fn(model, cfg, batch)
+        loss.backward()
+        # a parameter the loss does not reach has a zero gradient
+        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for n, p in params.items()}
+        new = dict(state)
+        if compress:
+            compressed, err = compress_gradients(grads, state.get("err"),
+                                                 cache["groups"])
+            grads = decompress_gradients(compressed)
+            new["err"] = err
+        _, new["opt"], opt_metrics = adamw_update(
+            params, grads, state["opt"], opt_cfg, cache["ndim"])
+        for p in params.values():
+            p.grad = None
+        del grads
+        out = {k: v.detach() for k, v in metrics.items()}
+        out.update(opt_metrics)
+        return new, out
+
+    return train_step
+
+
+def init_train_state(cfg: ModelConfig, opt_cfg: AdamWConfig, seed: int,
+                     compress: bool = False, device=None
+                     ) -> Tuple[Dict, Dict]:
+    """Returns (state, axes): the model from ``seed`` on ``device`` (CUDA
+    unless the caller asks for the CPU), zero moments, a zero error tree
+    with ``compress``; ``axes`` the reference's logical axes of the
+    state."""
+    model, axes = init_params(cfg, seed, device)
+    params = dict(model.named_parameters())
+    state = {"params": model, "opt": adamw_init(params, opt_cfg)}
+    state_axes = {"params": axes,
+                  "opt": {"mu": axes, "nu": axes, "step": ()}}
+    if compress:
+        state["err"] = {n: torch.zeros_like(p, dtype=torch.float32)
+                        for n, p in params.items()}
+        state_axes["err"] = axes
+    return state, state_axes
+
+
+def state_tree(state: Dict, cfg: ModelConfig) -> Dict:
+    """The train state in the reference's tree, tensors stacked per
+    segment (copies; ``step`` as it is)."""
+    named = {n: p.detach() for n, p in state["params"].named_parameters()}
+    tree = {"params": to_reference_tree(cfg, named),
+            "opt": {"mu": to_reference_tree(cfg, state["opt"]["mu"]),
+                    "nu": to_reference_tree(cfg, state["opt"]["nu"]),
+                    "step": state["opt"]["step"]}}
+    if "err" in state:
+        tree["err"] = to_reference_tree(cfg, state["err"])
+    return tree
+
+
+def _as_tensor(v) -> torch.Tensor:
+    return v if isinstance(v, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(v))
+
+
+@torch.no_grad()
+def load_state_tree(state: Dict, tree: Dict, cfg: ModelConfig) -> Dict:
+    """Copy a state in the reference's tree (arrays or tensors, as a
+    checkpoint restores it) into ``state``'s tensors, in place; returns
+    ``state`` with its step replaced."""
+    params = dict(state["params"].named_parameters())
+    parts = [(params, tree["params"]), (state["opt"]["mu"],
+                                        tree["opt"]["mu"]),
+             (state["opt"]["nu"], tree["opt"]["nu"])]
+    if "err" in state:
+        parts.append((state["err"], tree["err"]))
+    for dst, src in parts:
+        for name, v in from_reference_tree(cfg, src, dst).items():
+            dst[name].copy_(_as_tensor(v))
+    step = state["opt"]["step"]
+    state["opt"]["step"] = _as_tensor(tree["opt"]["step"]).to(
+        device=step.device, dtype=step.dtype).reshape(())
+    return state
 
 
 def make_serve_step(cfg: ModelConfig):

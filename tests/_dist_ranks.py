@@ -190,3 +190,78 @@ def rank_main(rank: int, world: int, work: str, ckpt_dir: str = "") -> None:
         with open(os.path.join(work, f"rank{rank}.err"), "w") as f:
             f.write(traceback.format_exc())
         raise
+
+
+# ---------------------------------------------------------------------------
+# the MoE mesh paths (tests/test_torch_moe_mesh.py)
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("granite_moe_1b", "deepseek_v3_671b")
+MOE_SHAPES = ((4, 1), (4, 8), (4, 256))      # 4, 32 and 1024 tokens
+MOE_MESH = {"data": 2, "model": 2}
+
+
+def moe_cfg(cfg):
+    """A smoke config at the published capacity factor, 1.25."""
+    import dataclasses
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=1.25))
+
+
+def moe_x(cfg, B: int, S: int, router_w: np.ndarray) -> np.ndarray:
+    """Tokens (B, S, d_model) from a seed, pushed along the router's
+    first two experts' columns so that their capacity binds at 1024."""
+    rng = np.random.default_rng(B * S + cfg.d_model)
+    x = rng.normal(size=(B, S, cfg.d_model)).astype(np.float32)
+    lean = router_w[:, 0] + router_w[:, 1]
+    lean = lean / np.linalg.norm(lean)
+    return (x + 3.0 * lean).astype(np.float32)
+
+
+def moe_rank_main(rank: int, world: int, work: str) -> None:
+    """One rank of a 2 × 2 ``("data", "model")`` mesh on gloo: for each
+    arch and shape of ``work/moe_inputs.npz``, its batch block through
+    ``moe_apply`` under the mesh; ``y``, ``aux`` and the path taken to
+    ``moe_rank<r>.npz``."""
+    try:
+        import torch
+        torch.set_num_threads(1)
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.launch.mesh import (init_model_mesh,
+                                             init_stream_group,
+                                             use_model_mesh)
+        from repro_torch.models import moe
+        inputs = dict(np.load(os.path.join(work, "moe_inputs.npz")))
+        g = init_stream_group(os.path.join(work, "moe_store"), rank=rank,
+                              world_size=world, backend="gloo",
+                              device="cpu", timeout=TIMEOUT)
+        out = {}
+        try:
+            mesh = init_model_mesh(MOE_MESH, rank)
+            d = mesh.axis_index("data")
+            for arch in MOE_ARCHS:
+                cfg = moe_cfg(get_smoke_config(arch))
+                p = {}
+                for key, v in inputs.items():
+                    parts = key.split("/")
+                    if parts[0] == arch and parts[1] == "p":
+                        node = p
+                        for part in parts[2:-1]:
+                            node = node.setdefault(part, {})
+                        node[parts[-1]] = torch.from_numpy(v)
+                for B, S in MOE_SHAPES:
+                    x = torch.from_numpy(inputs[f"{arch}/x/{B}x{S}"])
+                    b = B // mesh.axis_size("data")
+                    with use_model_mesh(mesh):
+                        y, aux = moe.moe_apply(p, cfg, x[d * b:(d + 1) * b])
+                    out[f"{arch}/{B}x{S}/y"] = y.numpy()
+                    out[f"{arch}/{B}x{S}/aux"] = np.float32(aux)
+                    out[f"{arch}/{B}x{S}/path"] = np.array(
+                        moe.moe_path(cfg, b, S, mesh)[0])
+        finally:
+            g.close()
+        np.savez(os.path.join(work, f"moe_rank{rank}.npz"), **out)
+    except BaseException:
+        with open(os.path.join(work, f"moe_rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise

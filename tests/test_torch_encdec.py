@@ -48,7 +48,7 @@ def to_torch(tree):
 
 def close(a, b, atol):
     a = np.asarray(a)
-    b = b.numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+    b = b.detach().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
     assert a.shape == b.shape, (a.shape, b.shape)
     np.testing.assert_allclose(b, a, rtol=0, atol=atol)
 

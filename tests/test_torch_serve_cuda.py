@@ -64,7 +64,8 @@ def run(model, cfg, toks, S0, frontend):
     given with the tokens."""
     routes = Routes(model)
     S = toks.shape[1]
-    full, _, mtp = forward_train(model, cfg, dict(frontend, tokens=toks))
+    with torch.no_grad():
+        full, _, mtp = forward_train(model, cfg, dict(frontend, tokens=toks))
     logits, caches = prefill(model, cfg, dict(frontend, tokens=toks[:, :S0]))
     start = caches["index"]
     caches = serve.grow_caches(caches, start + S - S0)
