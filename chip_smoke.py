@@ -272,6 +272,31 @@ started together), then runs these phases, each printing one JSON line:
     chunk with its time and bound.  20f ``examples/torch_train_small.py``
     on the card exits 0.
 
+21. the launchers on the production mesh, at the world of one that one
+    card gives (an NCCL group of one rank, ``data`` 1 × ``model`` 1,
+    state placed as DTensors): 21a, a process of its own with
+    deterministic algorithms on, 20a's configuration (``reduced``: 48 ->
+    8 layers) for 3 steps on 20a's path (plain tensors), then 3 through
+    the train launcher's production path (``init_production_mesh``,
+    ``train_state_on_mesh`` under TRAIN_RULES, ``PlacedBatches``): the
+    losses equal step for step, the first ≡ 20a's within 1e-3, and the
+    state's bytes on the card ≡ the dry run's argument bytes for that
+    configuration on the mesh of one rank within 1 %; step ms and peak
+    memory of both paths beside 20a's.  21b in this process: the serve
+    launcher without ``--smoke`` (Qwen2.5-14B whole, weights placed by
+    DECODE_RULES, 4 lanes × 32 greedy steps, the guard through
+    ``--service``, whose lane router and fused_scan launches are
+    counted): the tokens ≡ 17a's; decode ms a step beside 17a's.  21c on
+    the CPU, one process each on half the cores, beside 20a and 20b
+    (which run on the other half and whose steps wait on the card), all
+    ended before 20c: the dry run (``repro_torch.launch.dryrun`` on fake
+    groups of 256 and 512 ranks) of Qwen2.5-14B × train_4k on both
+    meshes and DeepSeek-V3 × decode_32k on 16×16, the pipeline's dry run
+    at 2×16×16, and 21a's configuration on the mesh of one rank
+    (``chip_smoke.py --mesh-worker 21c-cut``): bytes per device, FLOPs
+    and collective bytes per device, as the port's own counts of one
+    rank, not measurements of 256 cards.
+
 Phase 8 also times ``bitvector`` alone on the device: its launches
 queued behind a spin kernel, so host work leaves no gap between them
 (CUDA events), beside the host time of one wrapper call.
@@ -4409,6 +4434,7 @@ def phase_serve_model(seed: int, dev: str = "cuda") -> tuple:
         "decode_bound_by": "bytes" if b_bytes >= b_ops else "operations",
         "decode_bound_GB": float(np.mean([b[2] for b in bounds])) / 1e9,
         "bound_share": bound_ms / med, "profile": prof,
+        "generated_tokens": run.tokens.tolist(),
         "rerun_tokens_equal": bool(np.array_equal(run.tokens,
                                                   checked.tokens)),
         "teacher_forcing": dict(tf, tolerance=tol,
@@ -5719,7 +5745,9 @@ def train_trainer_part(part: str, work: str, seed: int) -> dict:
 
 
 def train_worker_run(part: str, seed: int, work: str) -> dict:
-    """A phase-20 subprocess's work."""
+    """A phase-20 (or 21a) subprocess's work."""
+    if part == "21a":
+        return mesh_train(seed)
     if part in TRAIN_RUNS:
         return train_full(part, seed)
     if part == "20c":
@@ -5727,14 +5755,17 @@ def train_worker_run(part: str, seed: int, work: str) -> dict:
     return train_trainer_part(part.split("-")[1], work, seed)
 
 
-def train_worker(part: str, seed: int, work: Path, env=None) -> dict:
-    """``chip_smoke.py --train-worker PART`` as a subprocess on the card:
-    its exit code 0 and its last line's JSON."""
+def train_worker(part: str, seed: int, work: Path, env=None,
+                 cores=None) -> dict:
+    """``chip_smoke.py --train-worker PART`` as a subprocess on the card
+    (on the CPU cores ``cores`` when given): its exit code 0 and its last
+    line's JSON."""
     cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--train-worker",
            part, "--seed", str(seed), "--train-dir", str(work)]
     t0 = time.perf_counter()
     out = subprocess.run(cmd, cwd=ROOT, text=True, capture_output=True,
-                         timeout=600, env=env)
+                         timeout=600, env=env, preexec_fn=None if cores is None
+                         else lambda: os.sched_setaffinity(0, cores))
     check(out.returncode == 0, f"{part}: the worker exited "
           f"{out.returncode}: {out.stderr[-3000:]}")
     lines = out.stdout.strip().splitlines()
@@ -5844,11 +5875,12 @@ def train_example() -> dict:
     return {"lines": lines, "seconds": time.perf_counter() - t0}
 
 
-def phase_train(seed: int, smi: str) -> dict:
-    """Phase 20: 20a and 20b in processes of their own, 20c (card against
-    the CPU), 20d (the trainer straight, then resumed in a new process,
-    deterministic algorithms on), 20e (the monitor over their STEP
-    events), 20f (the example)."""
+def phase_train(seed: int, smi: str, cores=None, before_20c=None) -> dict:
+    """Phase 20: 20a and 20b in processes of their own (on ``cores``, the
+    CPU cores that 21c's dry runs leave free), ``before_20c()``, then 20c
+    (card against the CPU), 20d (the trainer straight, then resumed in a
+    new process, deterministic algorithms on), 20e (the monitor over
+    their STEP events), 20f (the example)."""
     import gc
     gc.collect()
     torch.cuda.empty_cache()
@@ -5859,8 +5891,13 @@ def phase_train(seed: int, smi: str) -> dict:
     try:
         runs = {}
         for tag in ("20a", "20b", "20c"):
+            if tag == "20c" and before_20c is not None:
+                t0 = time.perf_counter()
+                before_20c()
+                secs["wait_before_20c"] = time.perf_counter() - t0
             t0 = time.perf_counter()
-            runs[tag] = train_worker(tag, seed, work)
+            runs[tag] = train_worker(tag, seed, work,
+                                     cores=None if tag == "20c" else cores)
             secs[tag] = time.perf_counter() - t0
             # each run's line as it ends; the phase's line repeats them
             emit({"phase": tag, "nvidia_smi": smi, **runs[tag]})
@@ -5918,6 +5955,336 @@ def phase_train(seed: int, smi: str) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the launchers on the production mesh, the dry run
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_STEPS = 3
+# 21c's dry-run cells: (arch, shape, mesh) at the published configs
+DRYRUN_CELLS = [("qwen2.5-14b", "train_4k", "pod16x16"),
+                ("qwen2.5-14b", "train_4k", "pods2x16x16"),
+                ("deepseek-v3-671b", "decode_32k", "pod16x16")]
+
+
+def _train_steps(step, state, batch, n: int) -> tuple:
+    """``n`` steps of ``step`` on one batch: (state, losses, step ms on
+    the host clock around a synchronize)."""
+    losses, ms = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return state, losses, ms
+
+
+def mesh_train(seed: int) -> dict:
+    """21a, a process of its own with deterministic algorithms on: 20a's
+    configuration (Qwen2.5-14B's widths, 8 of 48 layers, B=2 × S=4096,
+    bf16, remat) for ``MESH_TRAIN_STEPS`` steps on 20a's batch, first on
+    the mesh of one rank with plain tensors (20a's path), then through
+    the train launcher's production path at a world of one (an NCCL group
+    of one rank, ``init_production_mesh``, the state drawn and placed as
+    DTensors by ``train_state_on_mesh`` under TRAIN_RULES, the batch by
+    ``PlacedBatches``): the two runs' losses, step for step; the state's
+    bytes on the card after placement; step ms and peak memory of
+    both."""
+    import dataclasses
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import (host_model_mesh,
+                                         init_production_mesh,
+                                         use_model_mesh)
+    from repro_torch.launch.train import PlacedBatches, train_state_on_mesh
+    from repro_torch.models import init_train_state, make_train_step
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.sharding import TRAIN_RULES, is_dtensor, set_rules
+    arch, depth, B, S = TRAIN_RUNS["20a"]
+    serve.set_matmul_precision()
+    cfg = dataclasses.replace(get_config(arch), **depth)
+    opt = AdamWConfig(moment_dtype=cfg.opt_state_dtype, **TRAIN_OPT)
+    data = TokenPipeline(cfg.vocab_size, B, S, seed=seed, device=TRAIN_DEV)
+    step = make_train_step(cfg, opt)
+    res = {"arch": arch, "B": B, "S": S, "steps": MESH_TRAIN_STEPS,
+           "reduced": {k: f"{getattr(get_config(arch), k)} -> {v}"
+                       for k, v in depth.items()},
+           "deterministic": torch.are_deterministic_algorithms_enabled()}
+    # 20a's path: the mesh of one rank, plain tensors
+    torch.cuda.reset_peak_memory_stats()
+    with use_model_mesh(host_model_mesh()):
+        state, _ = init_train_state(cfg, opt, seed, device=TRAIN_DEV)
+        state, plain, plain_ms = _train_steps(
+            step, state, data.batch_at(0), MESH_TRAIN_STEPS)
+    res["plain_peak_mem_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    mesh = init_production_mesh(device=TRAIN_DEV)
+    try:
+        check(dict(mesh.shape) == {"data": 1, "model": 1} and
+              mesh.device_mesh is not None,
+              f"21a: the production mesh of a world of one, {mesh.shape}")
+        with set_rules(TRAIN_RULES), use_model_mesh(mesh):
+            t0 = time.perf_counter()
+            state, _ = train_state_on_mesh(cfg, opt, mesh, seed=seed,
+                                           device=TRAIN_DEV)
+            batch = PlacedBatches(data, cfg, mesh, TRAIN_RULES).batch_at(0)
+            torch.cuda.synchronize()
+            res["place_s"] = time.perf_counter() - t0
+            res["argument_bytes_on_card"] = (torch.cuda.memory_allocated()
+                                             - mem0)
+            check(all(is_dtensor(p) for p in state["params"].parameters())
+                  and all(is_dtensor(v) for v in state["opt"]["mu"].values())
+                  and is_dtensor(batch["tokens"]),
+                  "21a: the state and the batch are DTensors")
+            state, losses, ms = _train_steps(step, state, batch,
+                                             MESH_TRAIN_STEPS)
+        res["peak_mem_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        dist.destroy_process_group()
+    check(all(math.isfinite(v) for v in losses), "21a: finite losses")
+    check(losses == plain, f"21a: the production path's losses ≡ 20a's "
+          f"path's, step for step: {losses} vs {plain}")
+    res.update({"losses": losses, "losses_plain": plain, "step_ms": ms,
+                "step_ms_median": float(np.median(ms)),
+                "plain_step_ms": plain_ms,
+                "plain_step_ms_median": float(np.median(plain_ms))})
+    return res
+
+
+def mesh_serve(seed: int) -> dict:
+    """21b: the serve launcher without ``--smoke``
+    at a world of one (an NCCL group of one rank, the weights placed as
+    DTensors by DECODE_RULES), Qwen2.5-14B whole, 4 lanes × 8-token
+    prompt × 32 greedy steps, the guard through the ``--service`` runtime
+    on the card: its tokens, decode ms a step, and the launches of the
+    guard's kernels during the launcher's run."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import serve
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh21b_",
+                                 dir=ROOT / "build"))
+    try:
+        counters = reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        out = serve.main(["--arch", SERVE_ARCH, "--tokens",
+                          str(SERVE_TOKENS), "--lanes", str(SERVE_LANES),
+                          "--prompt-len", str(SERVE_PROMPT), "--service",
+                          "--service-dir", str(work)])
+        launches = read_launches(counters)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    check(not dist.is_initialized(), "21b: the launcher closed its group")
+    check(out["mesh"] == {"data": 1, "model": 1}, f"21b: {out['mesh']}")
+    check(launches["lane_route"] > 0 and launches["fused_scan"] > 0,
+          f"21b: the guard's kernels ran: {launches}")
+    run = out["run"]
+    step_ms = [1e3 * s for s in run.step_s]
+    return {"tokens": run.tokens.tolist(), "step_ms": step_ms,
+            "decode_ms_per_step_median": float(np.median(step_ms)),
+            "prefill_ms": 1e3 * run.prefill_s, "launches": launches,
+            "alerts": len(out["alerts"]), "chunks": out["chunks"],
+            "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def mesh_dryrun_cut(seed: int) -> dict:
+    """21c's record of 21a's configuration on the mesh of one rank (a
+    fake group of one, on the CPU): its argument bytes, the state's and
+    the batch's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    arch, depth, B, S = TRAIN_RUNS["20a"]
+    cfg = dataclasses.replace(get_config(arch), **depth)
+    dryrun.fake_world(1)
+    mesh = dryrun.make_mesh({"data": 1, "model": 1})
+    return dryrun.run_cell(arch, "train_4k", mesh, "host1x1", save=False,
+                           verbose=False, cfg=cfg,
+                           shape=dict(kind="train", seq_len=S,
+                                      global_batch=B))
+
+
+def split_cores() -> tuple:
+    """This process's CPU cores in two halves: (the card phases', 21c's
+    dry runs'); (None, None) with fewer than 4."""
+    cores = sorted(os.sched_getaffinity(0))
+    if len(cores) < 4:
+        return None, None
+    half = len(cores) // 2
+    return set(cores[:half]), set(cores[half:])
+
+
+def start_dry_runs(seed: int, cores=None) -> dict:
+    """21c's processes on the CPU (no card), on the CPU cores ``cores``
+    when given: the dry run of each of ``DRYRUN_CELLS``, the pipeline's
+    ``main``, and 21a's configuration on the mesh of one rank
+    (``chip_smoke.py --mesh-worker 21c-cut``).  Started after phase 19,
+    beside 20a and 20b, whose steps wait on the card and which run on the
+    other cores; :func:`wait_dry_runs` collects them before 20c, whose
+    time is a CPU step.  They are killed if the script ends first."""
+    import atexit
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh21_",
+                                 dir=ROOT / "build"))
+    env = dict(os.environ, REPRO_RESULTS_DIR=str(work),
+               PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+
+    def popen(cmd):
+        return subprocess.Popen(
+            cmd, cwd=ROOT, env=env, text=True, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, preexec_fn=None if cores is None
+            else lambda: os.sched_setaffinity(0, cores))
+    procs = {}
+    for arch, shape, mesh in DRYRUN_CELLS:
+        procs["/".join((arch, shape, mesh))] = popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--multi-pod"
+             if mesh == "pods2x16x16" else "--single-pod-only"])
+    procs["pipeline"] = popen([sys.executable, "-m",
+                               "repro_torch.launch.pipeline"])
+    procs["cut"] = popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                          "--mesh-worker", "21c-cut", "--seed", str(seed)])
+    runs = {"work": work, "procs": procs, "t0": time.perf_counter(),
+            "out": {}}
+
+    def stop():
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        shutil.rmtree(work, ignore_errors=True)
+    runs["stop"] = stop
+    atexit.register(stop)
+    return runs
+
+
+def wait_dry_runs(runs: dict, timeout: int = 900) -> None:
+    """Each 21c process's exit code 0, its output lines kept in
+    ``runs["out"]`` and the records it wrote read; the seconds since
+    they started in ``runs["s"]``."""
+    from repro_torch.configs import ALIASES
+    for name, proc in runs["procs"].items():
+        try:
+            out, err = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise
+        check(proc.returncode == 0, f"21c {name}: exited "
+              f"{proc.returncode}: {err[-3000:]}")
+        lines = out.strip().splitlines()
+        check(bool(lines), f"21c {name}: printed nothing")
+        runs["out"][name] = lines
+    runs["s"] = time.perf_counter() - runs["t0"]
+    runs["records"] = {}
+    for arch, shape, mesh in DRYRUN_CELLS:
+        runs["records"]["/".join((arch, shape, mesh))] = json.loads(
+            (runs["work"] / f"{ALIASES[arch]}__{shape}__{mesh}.json"
+             ).read_text())
+    runs["stop"]()
+
+
+def phase_mesh(seed: int, smi: str, serve_res: dict, train_res: dict,
+               dry21: dict) -> dict:
+    """Phase 21: 21a in a process of its own (deterministic algorithms
+    on), 21b in this process, then 21c's records (collected during phase
+    20): bytes per device, FLOPs, collective bytes; 21a's losses ≡ 20a's
+    path's, its state bytes on the card ≡ the dry run's argument bytes
+    within 1 %; 21b's tokens ≡ 17a's."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh21a_",
+                                 dir=ROOT / "build"))
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               CHIP_SMOKE_DETERMINISTIC="1")
+    secs = {}
+    try:
+        t0 = time.perf_counter()
+        a = train_worker("21a", seed, work, env)
+        secs["21a"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "21a", "nvidia_smi": smi, **a})
+    t0 = time.perf_counter()
+    b = mesh_serve(seed)
+    secs["21b"] = time.perf_counter() - t0
+    cells = {}
+    for key, rec in dry21["records"].items():
+        cells[key] = {
+            "num_devices": rec["num_devices"],
+            "argument_bytes_per_device":
+                rec["memory_analysis"]["argument_size_in_bytes"],
+            "output_bytes_per_device":
+                rec["memory_analysis"]["output_size_in_bytes"],
+            "flops_per_device": rec["flops"],
+            "bytes_accessed_per_device": rec["bytes_accessed"],
+            "collective_bytes_per_device": {
+                k: v for k, v in rec["collectives"].items() if k != "ops"},
+            "run_s": rec["lower_s"]}
+    pipe_rec = json.loads(dry21["out"]["pipeline"][-1])
+    cut_rec = json.loads(dry21["out"]["cut"][-1])
+    secs["21c_beside_20ab"] = dry21["s"]
+    check(b["tokens"] == serve_res["model"]["generated_tokens"],
+          "21b: the production path's tokens ≡ 17a's")
+    card = a["argument_bytes_on_card"]
+    dry_args = cut_rec["memory_analysis"]["argument_size_in_bytes"]
+    check(abs(card - dry_args) <= 0.01 * dry_args, f"21a: the state's "
+          f"bytes on the card {card} ≡ the dry run's {dry_args} within 1 %")
+    a20 = train_res["runs"]["20a"]
+    # 20a's own run, without deterministic algorithms, starts from the
+    # same weights and batch: its first loss (no update yet) agrees
+    first = abs(a["losses_plain"][0] - a20["losses"][0])
+    check(first <= 1e-3 * abs(a20["losses"][0]), f"21a: the first loss "
+          f"{a['losses_plain'][0]} ≡ 20a's {a20['losses'][0]} within 1e-3")
+    result = {
+        "phase": 21, "case": "the launchers on the production mesh at a "
+        "world of one (DTensor state) and the dry run on fake groups",
+        "nvidia_smi": smi,
+        "reduced": {"21a": a["reduced"]},
+        "21a": {"losses": a["losses"], "losses_plain": a["losses_plain"],
+                "losses_20a": a20["losses"][:MESH_TRAIN_STEPS],
+                "first_loss_abs_diff_20a": first,
+                "step_ms": a["step_ms"],
+                "step_ms_median": a["step_ms_median"],
+                "plain_step_ms_median": a["plain_step_ms_median"],
+                "step_ms_median_20a": a20["step_ms_median"],
+                "peak_mem_GB": a["peak_mem_GB"],
+                "plain_peak_mem_GB": a["plain_peak_mem_GB"],
+                "peak_mem_GB_20a": a20["peak_mem_GB"],
+                "argument_bytes_on_card": card,
+                "argument_bytes_dry_run": dry_args,
+                "place_s": a["place_s"], "deterministic": a["deterministic"]},
+        "21b": {"tokens_equal_17a": True,
+                "decode_ms_per_step_median": b["decode_ms_per_step_median"],
+                "decode_ms_per_step_median_17a":
+                    serve_res["model"]["decode_ms_per_step_median"],
+                "decode_ms_per_step": b["step_ms"],
+                "prefill_ms": b["prefill_ms"],
+                "guard_launches": b["launches"], "alerts": b["alerts"],
+                "peak_mem_GB": b["peak_mem_GB"]},
+        "21c": {"cells": cells, "pipeline": pipe_rec,
+                "cut_on_one_rank": {
+                    "argument_bytes": dry_args,
+                    "flops": cut_rec["flops"],
+                    "run_s": cut_rec["lower_s"]}},
+        "seconds": secs}
+    emit(result)
+    return result
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5940,10 +6307,18 @@ def main() -> None:
     parser.add_argument("--train-worker", metavar="PART",
                         help=argparse.SUPPRESS)
     parser.add_argument("--train-dir", default="", help=argparse.SUPPRESS)
+    # phase 21c's subprocess: the dry run of 21a's configuration
+    parser.add_argument("--mesh-worker", choices=("21c-cut",),
+                        help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not (ROOT / "src" / "repro_torch").is_dir():
         sys.exit("chip_smoke.py runs from a checkout of the repository: "
                  "src/repro_torch is missing")
+    if args.mesh_worker:
+        # the dry run of 21a's configuration: on the CPU, no card needed
+        sys.path.insert(0, str(ROOT / "src"))
+        emit(mesh_dryrun_cut(args.seed))
+        return
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device; none is available")
     sys.path.insert(0, str(ROOT / "src"))
@@ -6002,8 +6377,15 @@ def main() -> None:
     guards18 = list(fam_res["guards"].values())
     more_res = phase("19 serve, more families", phase_serve_more, seed, smi)
     guards19 = list(more_res["guards"].values())
-    train_res = phase("20 train", phase_train, seed, smi)
+    # 21c's dry runs on the CPU, on half the cores, beside 20a and 20b
+    card_cores, dry_cores = split_cores()
+    dry21 = start_dry_runs(seed, dry_cores)
+    train_res = phase("20 train", phase_train, seed, smi, card_cores,
+                      lambda: wait_dry_runs(dry21))
     mon20 = train_res["monitor"]
+    mesh_res = phase("21 production mesh", phase_mesh, seed, smi, serve_res,
+                     train_res, dry21)
+    guard21 = mesh_res["21b"]["guard_launches"]
     emit({"phase_seconds": spans,
           "total_s": time.perf_counter() - t_main})
     unf = unf_res["kernels"]
@@ -6065,6 +6447,7 @@ def main() -> None:
         "phase20_plain_ms": mon20["fused_scan_plain_ms"],
         "phase20_bound_ms": mon20["fused_scan_bound_ms"],
         "phase20_max_abs_err": mon20["fused_scan_max_abs_err"],
+        "phase21_launches": guard21["fused_scan"],
         "phase15_buckets": {k: {x: v[x] for x in (
             "S", "NQ", "k", "state_bucket", "n_split", "kernel_ms",
             "plain_ms", "bound_ms", "bound_by")}
@@ -6167,7 +6550,8 @@ def main() -> None:
         "phase19_plain_ms": [g["lane_route_plain_ms"] for g in guards19],
         "phase19_bound_ms": [g["lane_route_bound_ms"] for g in guards19],
         "phase19_max_abs_err": max(g["lane_route_max_abs_err"]
-                                   for g in guards19)}]})
+                                   for g in guards19),
+        "phase21_launches": guard21["lane_route"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

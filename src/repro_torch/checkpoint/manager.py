@@ -187,14 +187,18 @@ class CheckpointManager:
         which may *rescale* lanes on restore) can read a checkpoint without
         first building a shape-identical template tree.
         """
-        step = step if step is not None else self.latest_step()
-        if step is None:
-            raise FileNotFoundError(f"no checkpoints in {self.directory}")
-        path = os.path.join(self.directory, f"step_{step}")
-        with open(os.path.join(path, "manifest.json")) as f:
-            manifest = json.load(f)
-        arrays = {leaf["key"]: np.load(os.path.join(path, leaf["file"]))
-                  for leaf in manifest["leaves"]}
+        # under the lock of the writer's publish and GC: an async write
+        # that lands meanwhile cannot delete the step being read
+        with self._io_lock:
+            step = step if step is not None else self.latest_step()
+            if step is None:
+                raise FileNotFoundError(
+                    f"no checkpoints in {self.directory}")
+            path = os.path.join(self.directory, f"step_{step}")
+            with open(os.path.join(path, "manifest.json")) as f:
+                manifest = json.load(f)
+            arrays = {leaf["key"]: np.load(os.path.join(path, leaf["file"]))
+                      for leaf in manifest["leaves"]}
         return arrays, manifest["extra"]
 
     def restore(self, template: Any, step: Optional[int] = None

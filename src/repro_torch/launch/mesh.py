@@ -10,19 +10,20 @@ of the reference's ``PartitionSpec(axes)``; gathering the ranks' outputs in
 rank order gives the reference's global array element for element
 (:meth:`StreamGroup.block`, :meth:`StreamGroup.gather`).
 
-The reference's production meshes (a 16×16 TPU pod, two pods joined over
-the data-centre network) do not carry over.  A group here is flat: one
-rank per GPU of the job, NCCL between the GPUs, or gloo on the CPU.
+The stream engine's group is flat: one rank per GPU of the job, NCCL
+between the GPUs, or gloo on the CPU.
 
-The LM's MoE layers need the reference's named axes instead:
-:class:`ModelMesh` (``data`` and ``model``, ``pod`` across pods) with
-``axis_index``, ``psum``, ``pmean`` and ``all_gather`` over one axis, from
-sub-groups of the job's group (:func:`init_model_mesh`), or of one rank
+The LM needs the reference's named axes instead: :class:`ModelMesh`
+(``data`` and ``model``, ``pod`` across pods) over a named
+``DeviceMesh``, with ``axis_index``, ``psum``, ``pmean`` and
+``all_gather`` over one axis (:func:`init_model_mesh`), or of one rank
 with no group at all (:func:`host_model_mesh`, the reference's
-``make_host_mesh()``).  :func:`use_model_mesh` enters one, as
-``jax.set_mesh`` does.
+``make_host_mesh()``).  :func:`production_shape` and
+:func:`init_production_mesh` give the reference's production meshes
+(16×16, 2×16×16) for the launchers.  :func:`use_model_mesh` enters one,
+as ``jax.set_mesh`` does.
 
-Groups are initialised through a ``file://`` store at a path the caller
+Stream groups are initialised through a ``file://`` store at a path the caller
 gives (a path that does not exist yet, on a file system every rank
 sees), so concurrent jobs on one host never race for a TCP port, and
 always with an explicit timeout, so a rank that never arrives fails the
@@ -158,17 +159,24 @@ class ModelMesh:
 
     Rank ``r`` sits at the row-major coordinates of ``shape``, the order
     in which the reference lays devices on its mesh, so rank ``d·M + m``
-    of a ``data × model = D × M`` mesh is at ``(d, m)``.  Each axis of
-    more than one rank has a process group of the ranks that differ from
-    this one along that axis only; an axis of size 1 has none, and its
-    collectives are the identity, so a mesh of one rank runs on one card
-    or on the CPU with nothing initialised.  Collectives go through
-    ``torch.distributed.nn.functional``, which carries gradients."""
+    of a ``data × model = D × M`` mesh is at ``(d, m)``.  ``device_mesh``
+    is the named ``DeviceMesh`` of the same ranks and axis names (None for
+    a mesh of one rank with no process group); DTensor state is placed
+    over it (``sharding.specs``), and each axis of more than one rank
+    takes its process group from it (``DeviceMesh.get_group``): the ranks
+    that differ from this one along that axis only.  An axis of size 1
+    has no group, and its collectives are the identity, so a mesh of one
+    rank runs on one card or on the CPU with nothing initialised.
+    Collectives carry gradients: sums through
+    ``torch.distributed.nn.functional``, gathers through
+    :class:`_AllGather`."""
 
-    def __init__(self, shape, rank: int = 0, groups=None):
+    def __init__(self, shape, rank: int = 0, groups=None,
+                 device_mesh=None):
         self.shape = dict(shape)
         self.axis_names = tuple(self.shape)
         self.rank = rank
+        self.device_mesh = device_mesh
         self.groups = dict(groups or {})
         coords, rest = {}, rank
         for name in reversed(self.axis_names):
@@ -214,9 +222,33 @@ class ModelMesh:
         in the order of the axis (the reference's ``tiled`` gather)."""
         if self.shape[name] == 1:
             return x
-        from torch.distributed.nn import functional as dfn
-        parts = dfn.all_gather(x.contiguous(), group=self.groups[name])
-        return torch.cat(list(parts), dim=dim)
+        parts = _AllGather.apply(x, self.groups[name])
+        return torch.cat(list(parts.unbind(0)), dim=dim)
+
+
+class _AllGather(torch.autograd.Function):
+    """Every rank's ``x`` of ``group`` stacked on a new leading dim, in
+    group-rank order; the gradient of each rank's ``x`` is its block of
+    the gradient summed over the ranks (a reduce-scatter).
+    ``torch.distributed.nn``'s all-gather takes its gradient on gloo by
+    scatters that name their source by its rank in the group, which gloo
+    reads as a global rank, so it fails in a subgroup."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.shape = group, x.shape
+        n = dist.get_world_size(group)
+        out = x.new_empty(n * x.numel())
+        dist.all_gather_into_tensor(out, x.contiguous().view(-1),
+                                    group=group)
+        return out.view((n,) + tuple(x.shape))
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = grad.new_empty(ctx.shape.numel())
+        dist.reduce_scatter_tensor(out, grad.contiguous().view(-1),
+                                   group=ctx.group)
+        return out.view(ctx.shape), None
 
 
 def host_model_mesh() -> ModelMesh:
@@ -225,40 +257,95 @@ def host_model_mesh() -> ModelMesh:
     return ModelMesh({"data": 1, "model": 1})
 
 
+def model_mesh_from(device_mesh) -> ModelMesh:
+    """The :class:`ModelMesh` of a named ``DeviceMesh``: its axes, this
+    rank's coordinates, and each axis's group from the mesh."""
+    names = tuple(device_mesh.mesh_dim_names)
+    shape = dict(zip(names, device_mesh.mesh.shape))
+    coords = device_mesh.get_coordinate()
+    rank = 0
+    for name, c in zip(names, coords):
+        rank = rank * shape[name] + int(c)
+    groups = {n: device_mesh.get_group(n) for n in names if shape[n] > 1}
+    return ModelMesh(shape, rank, groups, device_mesh)
+
+
 def init_model_mesh(shape, rank: int) -> ModelMesh:
     """A mesh of ``shape`` (ordered ``{axis: size}``) over the job's
     default process group, which must hold exactly that many ranks when
-    the mesh has more than one.  Every rank calls it, with the same shape:
-    the process groups of every line of every axis are made in one
-    order."""
+    one is initialised; without one, only the mesh of one rank, with no
+    ``DeviceMesh``.  Every rank calls it, with the same shape.  The
+    ``DeviceMesh`` lays the ranks row-major and makes each axis's groups
+    (on CUDA under NCCL, else on the CPU)."""
     shape = dict(shape)
-    names = list(shape)
     n = math.prod(shape.values())
-    if n == 1:
+    if not dist.is_initialized():
+        if n != 1:
+            raise ValueError(f"a mesh of {n} ranks needs a process group")
         return ModelMesh(shape, 0)
     if dist.get_world_size() != n:
         raise ValueError(f"a mesh of {n} ranks over a world of "
                          f"{dist.get_world_size()}")
-    strides, s = {}, 1
-    for name in reversed(names):
-        strides[name] = s
-        s *= shape[name]
-    groups = {}
-    for name in names:
-        if shape[name] == 1:
-            continue
-        others = [a for a in names if a != name]
-        # one line of the axis for each coordinate of the other axes
-        for flat in range(n // shape[name]):
-            base, rest = 0, flat
-            for a in reversed(others):
-                base += (rest % shape[a]) * strides[a]
-                rest //= shape[a]
-            ranks = [base + i * strides[name] for i in range(shape[name])]
-            g = dist.new_group(ranks)
-            if rank in ranks:
-                groups[name] = g
-    return ModelMesh(shape, rank, groups)
+    from torch.distributed.device_mesh import init_device_mesh
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    dm = init_device_mesh(device_type, tuple(shape.values()),
+                          mesh_dim_names=tuple(shape))
+    mesh = model_mesh_from(dm)
+    if mesh.rank != rank:
+        raise ValueError(f"rank {rank} sits at mesh rank {mesh.rank}")
+    return mesh
+
+
+PRODUCTION_SHAPES = {
+    (1, False): {"data": 1, "model": 1},
+    (1, True): {"pod": 1, "data": 1, "model": 1},
+    (256, False): {"data": 16, "model": 16},
+    (512, True): {"pod": 2, "data": 16, "model": 16},
+}
+
+
+def production_shape(world: int, multi_pod: bool = False) -> dict:
+    """The reference's production mesh for a world of ``world`` ranks:
+    ``data`` 16 × ``model`` 16 for 256, ``pod`` 2 × ``data`` 16 ×
+    ``model`` 16 for 512 with ``multi_pod``, the mesh of one rank for a
+    world of one.  Any other world raises."""
+    shape = PRODUCTION_SHAPES.get((world, bool(multi_pod)))
+    if shape is None:
+        raise ValueError(
+            f"the production mesh takes a world of 256 ranks (16×16, "
+            f"data × model), 512 with --multi-pod (2×16×16, pod × data × "
+            f"model), or 1 (the mesh of one rank); got {world}"
+            + (" with --multi-pod" if multi_pod else ""))
+    return dict(shape)
+
+
+def init_production_mesh(*, multi_pod: bool = False, device=None,
+                         timeout: timedelta = DEFAULT_TIMEOUT
+                         ) -> ModelMesh:
+    """Join the job's group (the variables ``torchrun`` sets: ``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``; without them a world
+    of one through a file store in a new temporary directory) unless a
+    default group exists, and build the production mesh of its world
+    (:func:`production_shape`) with its ``DeviceMesh``.  NCCL with blocks
+    on ``cuda:LOCAL_RANK``, or gloo when ``device`` is the CPU."""
+    env = os.environ
+    world = dist.get_world_size() if dist.is_initialized() else int(
+        env.get("WORLD_SIZE", 1))
+    shape = production_shape(world, multi_pod)
+    if not dist.is_initialized():
+        rank = int(env.get("RANK", 0))
+        cpu = device is not None and torch.device(device).type == "cpu"
+        if not cpu:
+            torch.cuda.set_device(int(env.get("LOCAL_RANK", 0)))
+        if "MASTER_ADDR" in env:
+            init = "env://"
+        else:
+            import tempfile
+            init = "file://" + os.path.join(tempfile.mkdtemp(), "store")
+        dist.init_process_group("gloo" if cpu else "nccl",
+                                init_method=init, rank=rank,
+                                world_size=world, timeout=timeout)
+    return init_model_mesh(shape, dist.get_rank())
 
 
 _MESHES: List[ModelMesh] = []

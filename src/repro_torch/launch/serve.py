@@ -15,18 +15,24 @@ guard, a CEQL query ``PARTITION BY [lane]``; its matches surface as
 guardrail hits beside the generated tokens.
 
 The model runs on the CUDA device unless ``--device cpu`` asks for the CPU,
-and raises without a card.  The model runs under the mesh of one rank
-(``data`` 1 × ``model`` 1), as the reference's launcher runs under
-``make_host_mesh()``, so MoE layers take its expert-parallel paths: at
-512 tokens or fewer (the prefill of 4 × 8, every decode step) the
-weights-stationary pass, which drops no token-choice.  ``--smoke`` takes
-the arch's reduced config; without it the published config runs whole on
-one card
-(Qwen2.5-14B in bf16 holds 29.5 GB of weights; Granite-MoE-1B,
-Zamba2-2.7B and RWKV6-1.6B 2.7-4.1 GB; Whisper-base 0.29 GB in float32;
-InternVL2-1B 0.99 GB).  Every arch of the registry runs; DeepSeek-V3's
-published config (about 1.34 TB in bf16) does not fit one card and waits
-for the sharded path, so take it with ``--smoke``.
+and raises without a card.  ``--smoke`` takes the arch's reduced config
+under the mesh of one rank (``data`` 1 × ``model`` 1), as the reference's
+launcher runs under ``make_host_mesh()``, with plain tensors.  Without it
+the published config runs on the production mesh of the job's world
+(``launch.mesh.production_shape``: ``data`` 16 × ``model`` 16 for 256
+ranks under ``torchrun``, the mesh of one rank for a world of one; any
+other world raises), its weights placed as DTensors by ``DECODE_RULES``
+(heads and experts over ``model``, ``fsdp`` over ``data``), the lanes
+split over ``data`` and the KV caches' sequence over ``model``.  MoE
+layers take the reference's expert-parallel paths on both: at 512 tokens
+or fewer (the prefill of 4 × 8, every decode step) the weights-stationary
+pass, which drops no token-choice.  On one card, Qwen2.5-14B in bf16
+holds 29.5 GB of weights; Granite-MoE-1B, Zamba2-2.7B and RWKV6-1.6B
+2.7-4.1 GB; Whisper-base 0.29 GB in float32; InternVL2-1B 0.99 GB.
+DeepSeek-V3's published config (about 1.34 TB in bf16) needs the
+production mesh of 256 ranks (``python -m repro_torch.launch.dryrun
+--arch deepseek-v3-671b --shape decode_32k`` gives what a rank holds); on
+one card take it with ``--smoke``.
 
 Without ``--service`` the guard is the in-process host executor.  With it,
 the guard is the :class:`repro_torch.runtime.StreamService` over
@@ -47,14 +53,18 @@ from typing import Callable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed
 import torch.nn.functional as F
 
 from ..configs import ALIASES, get_config, get_smoke_config
 from ..core import Event, compile_query
 from ..models import init_params, make_serve_step, prefill
 from ..models.config import ModelConfig
+from ..sharding import (DECODE_RULES, current_rules, full, is_dtensor,
+                        set_rules)
+from ..sharding.specs import drawn_in_place, place
 from ..vector.engine import resolve_device
-from .mesh import host_model_mesh, use_model_mesh
+from .mesh import host_model_mesh, init_production_mesh, use_model_mesh
 
 DEFAULT_GUARD = """
 SELECT * FROM Tokens
@@ -118,6 +128,74 @@ def make_frontend(cfg: ModelConfig, lanes: int, device, seed: int = 2
     return {key: torch.randn(shape, generator=gen, device=device)}
 
 
+def place_model(model, rules, mesh):
+    """The model's weights placed as DTensors over ``mesh`` (a
+    :class:`~repro_torch.launch.mesh.ModelMesh` with a ``DeviceMesh``) by
+    ``rules``, in place; returns the model."""
+    return place(model, model.axes, rules, mesh.device_mesh)
+
+
+def _device_mesh(model):
+    """The ``DeviceMesh`` of a model placed as DTensors, else None."""
+    w = next(model.parameters())
+    return w.device_mesh if is_dtensor(w) else None
+
+
+def _place_batch(batch: dict, cfg: ModelConfig, dm) -> dict:
+    """A batch (tokens and the frontend's input) split over the rules'
+    batch axes on ``dm``; as it is off a mesh."""
+    if dm is None:
+        return batch
+    from .specs import batch_axes
+    axes = batch_axes(cfg)
+    axes["tokens"] = ("batch", None)
+    return place(batch, {k: axes[k] for k in batch}, current_rules(), dm)
+
+
+def _map(fn, tree):
+    """``fn`` on each tensor of a cache tree."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(fn, v) for v in tree]
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def _grow_placed(caches, tgt: int, cfg: ModelConfig, dm):
+    """Prefill's caches grown to ``tgt`` positions (:func:`grow_caches`),
+    placed over ``dm`` by the rules and the logical axes of
+    ``init_decode_caches`` without a whole copy on any rank: a leaf that
+    grows starts as zeros on its placements and takes prefill's positions
+    where its block holds them; any other is redistributed.  As
+    :func:`grow_caches` off a mesh."""
+    if dm is None:
+        return grow_caches(caches, tgt)
+    from torch.distributed.tensor import zeros
+
+    from ..models import init_decode_caches
+    from ..sharding.specs import sharding_tree, to_dtensor, write_at
+    shapes = grow_caches(_map(lambda t: torch.empty(
+        t.shape, dtype=t.dtype, device="meta"), caches), tgt)
+    _, axes = init_decode_caches(cfg, 1, 1, device="meta")
+    where = sharding_tree(shapes, axes, current_rules(), dm)
+
+    def go(x, s, p):
+        if isinstance(x, dict):
+            return {k: go(x[k], s[k], p[k]) for k in x}
+        if isinstance(x, list):
+            return [go(*a) for a in zip(x, s, p)]
+        if not isinstance(x, torch.Tensor):
+            return x
+        if s.shape == x.shape:
+            return (x.redistribute(dm, p) if is_dtensor(x)
+                    else to_dtensor(x, dm, p))
+        axis = next(d for d in range(x.ndim) if s.shape[d] != x.shape[d])
+        dst = zeros(s.shape, dtype=s.dtype, device_mesh=dm, placements=p)
+        write_at(dst, axis, 0, x)
+        return dst
+    return go(caches, shapes, where)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -151,16 +229,26 @@ def generate(model, cfg: ModelConfig, prompt: torch.Tensor, n_tokens: int,
     frames or patches), then ``n_tokens`` greedy decode steps, the first
     at the prefix's length (prompt and patches).  ``on_step(t, tokens,
     logp)`` sees each step's (B,) tokens and their log-probabilities as
-    they come."""
+    they come.
+
+    A model placed as DTensors (:func:`place_model`, the production mesh)
+    takes the prompt, the frontend's input and each step's token split
+    over the rules' batch axes; prefill's caches are grown and placed by
+    the rules (``cache_seq`` over ``model`` under ``DECODE_RULES``) from
+    their blocks, and each step writes them in place on the rank that
+    holds the position; the logits are gathered whole on every rank."""
     device = prompt.device
     frontend = dict(frontend or {})
+    dm = _device_mesh(model)
     S0 = prompt.shape[1]
     serve_step = make_serve_step(cfg)
     _sync(device)
     t0 = time.perf_counter()
-    logits, caches = prefill(model, cfg, dict(frontend, tokens=prompt))
+    logits, caches = prefill(model, cfg, _place_batch(
+        dict(frontend, tokens=prompt), cfg, dm))
     start = caches["index"]
-    caches = grow_caches(caches, start + n_tokens)
+    caches = _grow_placed(caches, start + n_tokens, cfg, dm)
+    logits = full(logits)
     _sync(device)
     prefill_s = time.perf_counter() - t0
     tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
@@ -168,7 +256,10 @@ def generate(model, cfg: ModelConfig, prompt: torch.Tensor, n_tokens: int,
     for t in range(n_tokens):
         fed.append(tok)
         t0 = time.perf_counter()
-        logits_t, caches = serve_step(model, tok, caches, start + t)
+        logits_t, caches = serve_step(
+            model, _place_batch({"tokens": tok}, cfg, dm)["tokens"], caches,
+            start + t)
+        logits_t = full(logits_t)
         _sync(device)
         step_s.append(time.perf_counter() - t0)
         logp = torch.log_softmax(logits_t.float(), dim=-1)
@@ -225,7 +316,6 @@ def main(argv=None) -> dict:
     device = resolve_device(args.device)
     arch = ALIASES.get(args.arch, args.arch)
     cfg = get_smoke_config(arch) if args.smoke else get_config(arch)
-    model, _ = init_params(cfg, 0, device)
     B = args.lanes
     prompt = make_prompt(cfg, B, args.prompt_len, device)
     frontend = make_frontend(cfg, B, device)
@@ -253,12 +343,29 @@ def main(argv=None) -> dict:
             else:
                 fired += len(guard.process(Event("TOK", attrs)))
 
-    # the mesh of one rank, as the reference's launcher enters
-    # make_host_mesh(): MoE layers take its expert-parallel paths
-    with use_model_mesh(host_model_mesh()):
-        run = generate(model, cfg, prompt, args.tokens, frontend=frontend,
-                       on_step=on_step)
-    out = {"events": events, "run": run}
+    # --smoke: the mesh of one rank, as the reference's launcher enters
+    # make_host_mesh(); else the production mesh, the weights placed by
+    # DECODE_RULES.  MoE layers take the expert-parallel paths on both.
+    owns_group = False
+    if args.smoke:
+        mesh = host_model_mesh()
+    else:
+        owns_group = not torch.distributed.is_initialized()
+        mesh = init_production_mesh(device=device)
+    try:
+        with set_rules(DECODE_RULES), use_model_mesh(mesh):
+            if args.smoke:
+                model, _ = init_params(cfg, 0, device)
+            else:
+                # each weight keeps this rank's block as it is drawn
+                with drawn_in_place(cfg, DECODE_RULES, mesh.device_mesh):
+                    model, _ = init_params(cfg, 0, device)
+            run = generate(model, cfg, prompt, args.tokens,
+                           frontend=frontend, on_step=on_step)
+    finally:
+        if owns_group:
+            torch.distributed.destroy_process_group()
+    out = {"events": events, "run": run, "mesh": dict(mesh.shape)}
     if svc is not None:
         svc.drain(pad=True)
         m = svc.metrics

@@ -18,6 +18,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..sharding import is_dtensor, replicate
+from ..sharding import with_logical_constraint as wlc
+from ..sharding.specs import matmul
+
 Params = Dict[str, Any]
 
 
@@ -76,7 +80,7 @@ def dense_init(gen, in_dim: int, out_dim: int, in_axis: Optional[str],
 
 
 def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"].to(x.dtype)
+    y = matmul(x, p["w"].to(x.dtype))
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
@@ -108,11 +112,20 @@ def embed_init(gen, vocab: int, dim: int, dtype, device=None):
 
 def embed(p: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
     # gather, then cast: the same values as the reference's cast-then-gather
-    return F.embedding(tokens, p["embedding"]).to(dtype)
+    table = p["embedding"]
+    if is_dtensor(table):
+        # the lookup from the whole table: the rows of a sharded one lie
+        # on other ranks, and tokens keep their own placement
+        table = replicate(table)
+        if not is_dtensor(tokens):
+            from torch.distributed.tensor import DTensor
+            tokens = DTensor.from_local(tokens, table.device_mesh,
+                                        table.placements, run_check=False)
+    return F.embedding(tokens, table).to(dtype)
 
 
 def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return x @ p["embedding"].to(x.dtype).T
+    return matmul(x, p["embedding"].to(x.dtype).T)
 
 
 # ---------------------------------------------------------------------------
@@ -167,4 +180,5 @@ def mlp(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
     else:
         # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(dense(p["wi"], x), approximate="tanh")
+    h = wlc(h, ("batch", None, "ffn"))
     return dense(p["wo"], h)

@@ -43,6 +43,8 @@ import torch
 import torch.nn.functional as F
 
 from ..launch.mesh import current_model_mesh
+from ..sharding import is_dtensor
+from ..sharding import with_logical_constraint as wlc
 from .config import ModelConfig
 from .layers import (ParamTree, Params, dense_init, mlp, mlp_init, normal)
 
@@ -83,6 +85,7 @@ def _expert_ffn(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
     else:
         h = F.gelu(torch.einsum("ecd,edf->ecf", x, p["wi"].to(x.dtype)),
                    approximate="tanh")
+    h = wlc(h, ("experts", None, "expert_ffn"))
     return torch.einsum("ecf,efd->ecd", h, p["wo"].to(x.dtype))
 
 
@@ -109,8 +112,12 @@ def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) → (y, aux_loss): on a mesh with a ``model`` axis the
     expert-parallel paths, else ``_moe_global`` (the reference's
-    dispatch, ``moe.py:64-86``)."""
+    dispatch, ``moe.py:64-86``).  A DTensor ``x`` (state placed over a
+    ``DeviceMesh``) takes the mesh paths on its local blocks
+    (:func:`_moe_dtensor`)."""
     mesh = current_model_mesh()
+    if is_dtensor(x):
+        return _moe_dtensor(p, cfg, x, mesh)
     if mesh is not None and "model" in mesh.axis_names:
         return _moe_sharded(p, cfg, x, mesh)
     return _moe_global(p, cfg, x)
@@ -151,7 +158,10 @@ def _moe_global(p: Params, cfg: ModelConfig, x: torch.Tensor
     # ---- dispatch (gather), expert FFN, combine (gather) -----------------
     x_pad = torch.cat([xf, xf.new_zeros((1, d))], dim=0)
     expert_in = x_pad[slot_tok].reshape(E, cap, d)
-    expert_out = _expert_ffn(p, expert_in, cfg.mlp).reshape(E * cap, d)
+    expert_in = wlc(expert_in, ("experts", "fsdp", None))
+    expert_out = _expert_ffn(p, expert_in, cfg.mlp)
+    expert_out = wlc(expert_out, ("experts", "fsdp", None))
+    expert_out = expert_out.reshape(E * cap, d)
 
     # inverse permutation: flat entry -> its sorted position
     inv = torch.empty_like(order)
@@ -228,15 +238,18 @@ def _gather_batch(mesh, x, axes):
     return x
 
 
-def moe_path(cfg: ModelConfig, B: int, S: int, mesh=None):
+def moe_path(cfg: ModelConfig, B: int, S: int, mesh=None, batch_axes=None):
     """Which path ``moe_apply`` takes for a rank's block of ``B`` × ``S``
-    tokens under ``mesh`` (None: off the mesh), and the capacity it gives
-    an expert: ``("global", cap)`` over all tokens, ``("sharded", cap)``
-    from the rank's own tokens, or ``("stationary", None)``, which drops
-    nothing."""
+    tokens under ``mesh`` (None: off the mesh), the batch split over
+    ``batch_axes`` (by default every batch axis of the mesh), and the
+    capacity it gives an expert: ``("global", cap)`` over all tokens,
+    ``("sharded", cap)`` from the rank's own tokens, or ``("stationary",
+    None)``, which drops nothing."""
     if mesh is None or "model" not in mesh.axis_names:
         return "global", capacity(cfg, B * S)
-    n_b = math.prod(mesh.axis_size(a) for a in _batch_axes(mesh))
+    if batch_axes is None:
+        batch_axes = _batch_axes(mesh)
+    n_b = math.prod(mesh.axis_size(a) for a in batch_axes)
     if cfg.moe.num_experts % mesh.axis_size("model"):
         return "global", capacity(cfg, B * n_b * S)
     if (B * n_b * S <= TOKEN_STATIONARY_MAX and cfg.mlp == "swiglu"
@@ -302,15 +315,16 @@ def _local_expert_pass(p: Params, cfg: ModelConfig, xf: torch.Tensor,
     return y
 
 
-def _moe_sharded(p: Params, cfg: ModelConfig, x: torch.Tensor, mesh
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _moe_sharded(p: Params, cfg: ModelConfig, x: torch.Tensor, mesh,
+                 axes=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The expert-parallel pass (the reference's ``_moe_sharded``), or the
     stationary pass where the dispatch rule takes it.  ``x`` is this
-    rank's batch block."""
+    rank's block of the batch, split over ``axes`` (by default every
+    batch axis of the mesh)."""
     m = cfg.moe
     B, S, d = x.shape
-    path, _ = moe_path(cfg, B, S, mesh)
-    axes = _batch_axes(mesh)
+    axes = _batch_axes(mesh) if axes is None else tuple(axes)
+    path, _ = moe_path(cfg, B, S, mesh, axes)
     if path == "global":
         # experts that the model axis does not divide: the global path
         # over every rank's tokens, then this rank's block
@@ -318,7 +332,7 @@ def _moe_sharded(p: Params, cfg: ModelConfig, x: torch.Tensor, mesh
         b0 = _batch_index(mesh, axes) * B
         return y[b0:b0 + B], aux
     if path == "stationary":
-        return _moe_decode_stationary(p, cfg, x, mesh)
+        return _moe_decode_stationary(p, cfg, x, mesh, axes)
     E_local = m.num_experts // mesh.axis_size("model")
     xf = x.reshape(B * S, d)
     probs, gate_vals, choices = route(p, cfg, xf)
@@ -335,7 +349,8 @@ def _moe_sharded(p: Params, cfg: ModelConfig, x: torch.Tensor, mesh
 
 
 def _moe_decode_stationary(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                           mesh) -> Tuple[torch.Tensor, torch.Tensor]:
+                           mesh, axes=None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The weights-stationary pass (the reference's
     ``_moe_decode_stationary``): the tokens of every batch block gathered
     on each rank; rank ``(data i, model j)`` holds experts ``j·E_l`` to
@@ -349,7 +364,7 @@ def _moe_decode_stationary(p: Params, cfg: ModelConfig, x: torch.Tensor,
     B, S, d = x.shape
     model_size, data_size = mesh.axis_size("model"), mesh.axis_size("data")
     E_local = E // model_size
-    axes = _batch_axes(mesh)
+    axes = _batch_axes(mesh) if axes is None else tuple(axes)
     x_full = _gather_batch(mesh, x, axes)                   # replicated
     Bf = x_full.shape[0]
     T = Bf * S
@@ -390,6 +405,57 @@ def _moe_decode_stationary(p: Params, cfg: ModelConfig, x: torch.Tensor,
     # this rank's block of the batch
     b0 = _batch_index(mesh, axes) * B
     return y.reshape(Bf, S, d)[b0:b0 + B], aux
+
+
+def _moe_dtensor(p: Params, cfg: ModelConfig, x, mesh
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_apply`` on a DTensor ``x`` with DTensor weights: the mesh
+    paths run on this rank's local blocks (``on_blocks``; the reference
+    runs them under ``shard_map``).  ``x`` is brought to the rules' batch
+    split (whole on the ``model`` axis); each weight to the block its path
+    reads: the router and the shared experts whole, the experts of this
+    ``model`` rank (in the stationary pass with the ``data`` rank's
+    ``d_model`` slice), or every expert where ``model`` does not divide
+    them.  ``y`` comes back as a DTensor of ``x``'s batch split, ``aux``
+    replicated."""
+    from ..launch.mesh import model_mesh_from
+    from ..sharding.specs import block_spec, on_blocks
+    dm = x.device_mesh
+    if mesh is None or mesh.device_mesh is not dm:
+        mesh = model_mesh_from(dm)
+    sx = block_spec(x, ("batch", None, None))
+    b_axes = () if sx[0] is None else (
+        (sx[0],) if isinstance(sx[0], str) else tuple(sx[0]))
+    sizes = dict(zip(dm.mesh_dim_names, dm.mesh.shape))
+    n_b = math.prod(sizes[a] for a in b_axes)
+    path, _ = moe_path(cfg, x.shape[0] // n_b, x.shape[1], mesh, b_axes)
+    # (key path, tensor, spec) of each weight the path reads
+    weights = [(("router",), p["router"]["w"], (None, None))]
+    if "shared" in p:
+        weights += [(("shared", n), p["shared"][n]["w"], (None, None))
+                    for n in ("wi", "wg", "wo") if n in p["shared"]]
+    for n in ("wi", "wg", "wo"):
+        if n in p:
+            spec = [None, None, None]
+            if path != "global":
+                spec[0] = "model"
+            if path == "stationary":
+                spec[2 if n == "wo" else 1] = "data"
+            weights.append(((n,), p[n], tuple(spec)))
+
+    def local(xl, *ws):
+        lp = {}
+        for (key, _, _), w in zip(weights, ws):
+            if key[0] in ("router", "shared"):
+                lp.setdefault(key[0], {})
+                node = lp[key[0]] if key[0] == "router" else \
+                    lp[key[0]].setdefault(key[1], {})
+                node["w"] = w
+            else:
+                lp[key[0]] = w
+        return _moe_sharded(lp, cfg, xl, mesh, b_axes)
+    return on_blocks(local, (x,) + tuple(w for _, w, _ in weights),
+                     (sx,) + tuple(s for _, _, s in weights), (sx, ()))
 
 
 class MoE(ParamTree):

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..sharding.specs import block_spec, on_blocks, reshape
 from .config import ModelConfig
 from .layers import ParamTree, Params, dense, dense_init, rmsnorm, \
     rmsnorm_init
@@ -64,14 +65,23 @@ def _shift(x: torch.Tensor, x_prev: torch.Tensor) -> torch.Tensor:
 
 
 def _wkv_scan(r, k, v, w, u, state):
-    """r,k,v,w: (B,S,H,N); u: (H,N); state: (B,H,N,N) → (y, state)."""
+    """r,k,v,w: (B,S,H,N); u: (H,N); state: (B,H,N,N) → (y, state); over
+    DTensors on each rank's blocks of the batch and the heads."""
+    sr = block_spec(r, ("batch", None, "heads", None))
+    ss = (sr[0], sr[2], None, None)
+    return on_blocks(_wkv_loop, (r, k, v, w, state, u),
+                     (sr, sr, sr, sr, ss, (sr[2], None)), (sr, ss))
+
+
+def _wkv_loop(r, k, v, w, state, u):
+    # each position's (B,H,N) slices, and u's broadcast, made once
+    u4 = u[None, :, :, None]
     ys = []
-    for t in range(r.shape[1]):
-        r_t, k_t, v_t, w_t = r[:, t], k[:, t], v[:, t], w[:, t]   # (B,H,N)
-        kv = torch.einsum("bhk,bhv->bhkv", k_t, v_t)               # (B,H,N,N)
-        ys.append(torch.einsum("bhk,bhkv->bhv", r_t,
-                               state + u[None, :, :, None] * kv))
-        state = w_t[..., None] * state + kv
+    for r_t, k_t, v_t, w_t in zip(r.unbind(1), k.unbind(1), v.unbind(1),
+                                  w[..., None].unbind(1)):
+        kv = torch.einsum("bhk,bhv->bhkv", k_t, v_t)         # (B,H,N,N)
+        ys.append(torch.einsum("bhk,bhkv->bhv", r_t, state + u4 * kv))
+        state = w_t * state + kv
     return torch.stack(ys, dim=1), state                           # (B,S,H,N)
 
 
@@ -83,14 +93,14 @@ def _projections(p, cfg, x, x_shift):
         m = p[mu].to(x.dtype)[None, None, :]
         return x * (1 - m) + x_shift * m
 
-    r = dense(p["wr"], lerp("mu_r")).reshape(B, S, H, N)
-    k = dense(p["wk"], lerp("mu_k")).reshape(B, S, H, N)
-    v = dense(p["wv"], lerp("mu_v")).reshape(B, S, H, N)
+    r = reshape(dense(p["wr"], lerp("mu_r")), B, S, H, N)
+    k = reshape(dense(p["wk"], lerp("mu_k")), B, S, H, N)
+    v = reshape(dense(p["wv"], lerp("mu_v")), B, S, H, N)
     g = F.silu(dense(p["wg"], lerp("mu_g")))
     w_in = lerp("mu_w")
     w_raw = p["w0"][None, None, :] + dense(
         p["w_lora_b"], torch.tanh(dense(p["w_lora_a"], w_in))).float()
-    w = torch.exp(-torch.exp(w_raw)).reshape(B, S, H, N)   # data-dependent
+    w = reshape(torch.exp(-torch.exp(w_raw)), B, S, H, N)  # data-dependent
     return r.float(), k.float(), v.float(), w, g
 
 
@@ -99,7 +109,7 @@ def _mix(p, cfg, x, x_prev, state):
     B, S, d = x.shape
     r, k, v, w, g = _projections(p, cfg, x, _shift(x, x_prev))
     y, state = _wkv_scan(r, k, v, w, p["u"], state)
-    y = rmsnorm(p["ln_x"], y.reshape(B, S, d).to(x.dtype), cfg.norm_eps)
+    y = rmsnorm(p["ln_x"], reshape(y, B, S, d).to(x.dtype), cfg.norm_eps)
     return dense(p["wo"], y * g), state
 
 

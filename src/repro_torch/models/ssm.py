@@ -21,6 +21,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..sharding.specs import block_spec, on_blocks, reshape
 from .config import ModelConfig
 from .layers import (ParamTree, Params, dense, dense_init, normal, rmsnorm,
                      rmsnorm_init, softplus)
@@ -89,7 +90,36 @@ def _causal_conv(cfg, xBC, conv_w, conv_b, cache=None):
     return out, new_cache
 
 
+def _on_head_blocks(fn, cfg, xh, dt, Bm, Cm, A_log, D, state):
+    """``fn`` on DTensors on each rank's blocks of the batch and the heads
+    (``Bm`` and ``Cm`` are shared by every head: whole on them)."""
+    sx = block_spec(xh, ("batch", None, "heads", None))
+    b, hd = sx[0], sx[2]
+    ss = (b, hd, None, None)
+    return on_blocks(lambda *a: fn(cfg, *a),
+                     (xh, dt, Bm, Cm, A_log, D, state),
+                     (sx, (b, None, hd), (b, None, None), (b, None, None),
+                      (hd,), (hd,), ss), (sx, ss))
+
+
 def ssd_reference(cfg: ModelConfig, xh, dt, Bm, Cm, A_log, D, state=None):
+    """Per-token recurrence (decode's path, and the oracle of
+    :func:`ssd_chunked`).
+
+    xh (B,S,H,P) | dt (B,S,H) | Bm,Cm (B,S,N) | state (B,H,P,N)
+    """
+    return _on_head_blocks(_ssd_reference_local, cfg, xh, dt, Bm, Cm,
+                           A_log, D, state)
+
+
+def ssd_chunked(cfg: ModelConfig, xh, dt, Bm, Cm, A_log, D, state=None):
+    """Chunked SSD — same I/O contract as :func:`ssd_reference`."""
+    return _on_head_blocks(_ssd_chunked_local, cfg, xh, dt, Bm, Cm, A_log,
+                           D, state)
+
+
+def _ssd_reference_local(cfg: ModelConfig, xh, dt, Bm, Cm, A_log, D,
+                         state=None):
     """Per-token recurrence (decode's path, and the oracle of
     :func:`ssd_chunked`).
 
@@ -113,7 +143,8 @@ def ssd_reference(cfg: ModelConfig, xh, dt, Bm, Cm, A_log, D, state=None):
     return y, h
 
 
-def ssd_chunked(cfg: ModelConfig, xh, dt, Bm, Cm, A_log, D, state=None):
+def _ssd_chunked_local(cfg: ModelConfig, xh, dt, Bm, Cm, A_log, D,
+                       state=None):
     """Chunked SSD — same I/O contract as :func:`ssd_reference`."""
     B, S, H, P = xh.shape
     N = Bm.shape[-1]
@@ -172,12 +203,12 @@ def _mix(p: Params, cfg: ModelConfig, x, conv_cache, ssd, state):
     z, xBC, dt = _split_proj(cfg, proj)
     xBC, conv_cache = _causal_conv(cfg, xBC, p["conv_w"].to(x.dtype),
                                    p["conv_b"].to(x.dtype), cache=conv_cache)
-    xh = xBC[..., :d_in].reshape(B, S, H, P)
+    xh = reshape(xBC[..., :d_in], B, S, H, P)
     Bm = xBC[..., d_in:d_in + N]
     Cm = xBC[..., d_in + N:]
     dt = softplus(dt.float() + p["dt_bias"][None, None, :])
     y, state = ssd(cfg, xh, dt, Bm, Cm, p["A_log"], p["D"], state=state)
-    y = y.reshape(B, S, d_in).to(x.dtype)
+    y = reshape(y, B, S, d_in).to(x.dtype)
     y = rmsnorm(p["norm"], y * F.silu(z), cfg.norm_eps)
     return dense(p["out_proj"], y), conv_cache, state
 

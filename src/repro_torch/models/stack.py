@@ -41,6 +41,7 @@ frontend_dim) for InternVL.
 """
 from __future__ import annotations
 
+from contextlib import ExitStack
 from typing import Any, Dict, List, Tuple
 
 import torch
@@ -48,6 +49,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..sharding import is_dtensor
+from ..sharding import with_logical_constraint as wlc
+from ..sharding.specs import store_layer
 from ..vector.engine import resolve_device
 from . import rwkv as rwkv_mod
 from .attention import (MLA, Attention, cross_kv, gqa_cross, gqa_init,
@@ -128,7 +132,7 @@ class Block(ParamTree):
         if "cross" in self and enc_out is not None:
             x = self._cross(x, cross_kv(self["cross"], self.cfg, enc_out))
         x, aux, _ = self._ffn(x, None)
-        return x, aux
+        return wlc(x, ("batch", "seq", "d_model")), aux
 
     def prefill(self, x, enc_out=None):
         """Returns (x, aux, cache); a cross block's cache holds the
@@ -143,7 +147,9 @@ class Block(ParamTree):
         x, aux, h = self._ffn(x, None)
         if self.kind == RWKV6:
             cache["cmix_x_prev"] = h[:, -1:, :]
-        return x, aux, cache
+        # the residual stream's split, as the training block ends with it
+        # (DTensors only: every layer then starts from the same placement)
+        return wlc(x, ("batch", "seq", "d_model")), aux, cache
 
     def decode(self, x, cache, index: int):
         """x: (B, 1, d).  Returns (x, cache); ``cross_kv`` is read, never
@@ -158,7 +164,7 @@ class Block(ParamTree):
         x, _, h = self._ffn(x, cache.get("cmix_x_prev"))
         if self.kind == RWKV6:
             new["cmix_x_prev"] = h
-        return x, new
+        return wlc(x, ("batch", "seq", "d_model")), new
 
     def _cross(self, x, enc_kv):
         h = rmsnorm(self["ln_cross"], x, self.cfg.norm_eps)
@@ -255,9 +261,7 @@ def _store_layer(tree, i: int, new):
     returns a new tree of the same tensors."""
     if isinstance(tree, dict):
         return {k: _store_layer(tree[k], i, new[k]) for k in tree}
-    dst = tree[i]
-    if new.data_ptr() != dst.data_ptr():
-        dst.copy_(new)
+    store_layer(tree, i, new)
     return tree
 
 
@@ -377,7 +381,7 @@ class Stack(nn.Module):
         if self.cfg.frontend == "vision_stub":
             patches = batch["patches"].to(self.cfg.activation_dtype)
             x = torch.cat([dense(self.frontend_proj, patches), x], dim=1)
-        return x
+        return wlc(x, ("batch", "seq", "d_model"))
 
     def encode(self, batch):
         """Whisper's encoder output over ``batch["frames"]``; None without
@@ -400,7 +404,7 @@ class Stack(nn.Module):
             # mask pad columns so softmax/argmax semantics are unchanged
             col = torch.arange(cfg.padded_vocab, device=logits.device)
             logits = logits.masked_fill(col >= cfg.vocab_size, -1e9)
-        return logits
+        return wlc(logits, ("batch", "seq", "vocab"))
 
     def forward(self, batch):
         """Teacher-forcing forward over the batch dict → (logits (B, S*,
@@ -426,7 +430,10 @@ class Stack(nn.Module):
         # multi-token prediction (depth 1): the hidden state before the
         # final norm with the next token's embedding (wrapping around at
         # the end), one more block, its norm, then the final norm again
-        emb_next = torch.roll(self.embed_tokens(batch["tokens"]), -1, dims=1)
+        emb = self.embed_tokens(batch["tokens"])
+        # torch.roll(emb, -1, dims=1) as slices: DTensor on torch 2.11
+        # has no rule for roll
+        emb_next = torch.cat([emb[:, 1:], emb[:, :1]], dim=1)
         pad = x.shape[1] - emb_next.shape[1]
         if pad:
             emb_next = F.pad(emb_next, [0, 0, pad, 0])
@@ -435,10 +442,26 @@ class Stack(nn.Module):
         h = rmsnorm(self.mtp["norm"], h, self.cfg.norm_eps)
         return logits, aux, self.logits(h)
 
-    @torch.inference_mode()
+    def _no_grad(self):
+        """inference_mode, or for DTensor weights no_grad (DTensor's views
+        need version counters, which inference tensors lack) with the
+        plain tensors made inside counted as replicated."""
+        if is_dtensor(self.final_norm["scale"]):
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+            stack = ExitStack()
+            stack.enter_context(torch.no_grad())
+            stack.enter_context(implicit_replication())
+            return stack
+        return torch.inference_mode()
+
     def prefill(self, batch):
         """Full-prefix forward building decode caches of the prefix's
         length (InternVL's patches included)."""
+        with self._no_grad():
+            return self._prefill(batch)
+
+    def _prefill(self, batch):
         x = self.embed_inputs(batch)
         enc_out = self.encode(batch)
         caches: Dict[str, Any] = {"index": x.shape[1], "segments": []}
@@ -450,9 +473,12 @@ class Stack(nn.Module):
             caches["segments"].append(cs[0] if shared else _stack_trees(cs))
         return self.logits(x), caches
 
-    @torch.inference_mode()
     def decode_step(self, token, caches, index: int):
         """token (B, 1); caches written in place at ``index``."""
+        with self._no_grad():
+            return self._decode_step(token, caches, index)
+
+    def _decode_step(self, token, caches, index: int):
         x = self.embed_tokens(token)
         new = {"index": index + 1, "segments": []}
         for (shared, seg), c in zip(self.segment_blocks(),
@@ -477,7 +503,12 @@ def init_params(cfg: ModelConfig, seed: int, device=None
     """The model on ``device`` (CUDA unless the caller asks for the CPU),
     its weights drawn from ``torch.Generator(device).manual_seed(seed)``
     one tensor at a time (float32 draw, cast to ``cfg.param_dtype``), and
-    its logical axes tree, the reference's."""
+    its logical axes tree, the reference's.  On the ``meta`` device the
+    draw is skipped: the model has the shapes and dtypes and no storage
+    (the reference's ``jax.eval_shape`` of its init)."""
+    if device is not None and torch.device(device).type == "meta":
+        model = Stack(cfg, None, torch.device("meta"))
+        return model, model.axes
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     model = Stack(cfg, gen, dev)

@@ -10,9 +10,17 @@ by the parameter's name, and the update writes the model's parameters and
 the moments in place.  :func:`state_tree` gives the state in the
 reference's tree (each segment's layers stacked), which is what a
 checkpoint holds, and :func:`load_state_tree` reads such a tree back.
+
+State placed as DTensors over a ``DeviceMesh`` (``sharding.specs``, the
+launchers' production mesh) runs the same steps: DTensor's sharding
+propagation runs each op on the local blocks, plain tensors made inside
+the step (positions, masks) count as replicated, the update runs on each
+rank's blocks, the metrics are the global values, and :func:`state_tree`
+holds full tensors, as the reference's checkpoint holds global arrays.
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -20,6 +28,7 @@ import torch
 
 from ..optim import (AdamWConfig, adamw_init, adamw_update,
                      compress_gradients, decompress_gradients)
+from ..sharding import full, is_dtensor, replicate
 from .config import ATTN, MAMBA2, RWKV6, SHARED_ATTN, ModelConfig
 from .convert import (from_reference_tree, leaf_map, reference_ndim,
                       to_reference_tree)
@@ -63,6 +72,27 @@ def loss_fn(model, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, Dict]:
     return loss, metrics
 
 
+def _mesh_context(tensor):
+    """Plain tensors made inside a step count as replicated when the
+    step's state is a DTensor (``implicit_replication``)."""
+    if is_dtensor(tensor):
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        return implicit_replication()
+    return nullcontext()
+
+
+def _pods():
+    """The model mesh when it has a ``pod`` axis of more than one rank
+    (state replicated over pods, ``sharding.specs.state_mesh``), else
+    None."""
+    from ..launch.mesh import current_model_mesh
+    mesh = current_model_mesh()
+    if mesh is None or mesh.shape.get("pod", 1) == 1:
+        return None
+    return mesh
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                     compress: bool = False):
     """Returns train_step(state, batch) -> (state, metrics), metrics the
@@ -82,11 +112,29 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                                leaf_map(cfg, params).items()}
         for p in params.values():
             p.grad = None
-        loss, metrics = loss_fn(model, cfg, batch)
-        loss.backward()
+        first = next(iter(params.values()))
+        with _mesh_context(first):
+            loss, metrics = loss_fn(model, cfg, batch)
+            # a DTensor loss (a partial mean over ranks) made whole, so
+            # that the backward pass starts from the global loss
+            replicate(loss).backward()
         # a parameter the loss does not reach has a zero gradient
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in params.items()}
+        pods = _pods()
+        if is_dtensor(first):
+            # each gradient on its parameter's blocks
+            grads = {n: g if list(g.placements) == list(params[n].placements)
+                     else g.redistribute(params[n].device_mesh,
+                                         params[n].placements)
+                     for n, g in grads.items()}
+            if pods is not None:
+                # each pod ran its block of the batch on a whole replica
+                # of the state: the mean over pods is the batch's gradient
+                with torch.no_grad():
+                    for g in grads.values():
+                        local = g.to_local()
+                        local.copy_(pods.pmean(local, ["pod"]))
         new = dict(state)
         if compress:
             compressed, err = compress_gradients(grads, state.get("err"),
@@ -98,7 +146,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         for p in params.values():
             p.grad = None
         del grads
-        out = {k: v.detach() for k, v in metrics.items()}
+        out = {k: full(v.detach()) for k, v in metrics.items()}
+        if pods is not None:
+            out = {k: pods.pmean(v, ["pod"]) for k, v in out.items()}
         out.update(opt_metrics)
         return new, out
 
@@ -124,16 +174,23 @@ def init_train_state(cfg: ModelConfig, opt_cfg: AdamWConfig, seed: int,
     return state, state_axes
 
 
-def state_tree(state: Dict, cfg: ModelConfig) -> Dict:
+def state_tree(state: Dict, cfg: ModelConfig, leaf=None) -> Dict:
     """The train state in the reference's tree, tensors stacked per
-    segment (copies; ``step`` as it is)."""
-    named = {n: p.detach() for n, p in state["params"].named_parameters()}
+    segment (copies; ``step`` as it is).  ``leaf(t)`` gives each tensor's
+    value in the tree, one tensor after another; by default its whole
+    value where it lies (a DTensor gathered: a collective)."""
+    leaf = leaf or (lambda t: full(t.detach()))
+
+    def whole(d):
+        return {n: leaf(t) for n, t in d.items()}
+
+    named = whole(dict(state["params"].named_parameters()))
     tree = {"params": to_reference_tree(cfg, named),
-            "opt": {"mu": to_reference_tree(cfg, state["opt"]["mu"]),
-                    "nu": to_reference_tree(cfg, state["opt"]["nu"]),
-                    "step": state["opt"]["step"]}}
+            "opt": {"mu": to_reference_tree(cfg, whole(state["opt"]["mu"])),
+                    "nu": to_reference_tree(cfg, whole(state["opt"]["nu"])),
+                    "step": leaf(state["opt"]["step"])}}
     if "err" in state:
-        tree["err"] = to_reference_tree(cfg, state["err"])
+        tree["err"] = to_reference_tree(cfg, whole(state["err"]))
     return tree
 
 
@@ -155,7 +212,13 @@ def load_state_tree(state: Dict, tree: Dict, cfg: ModelConfig) -> Dict:
         parts.append((state["err"], tree["err"]))
     for dst, src in parts:
         for name, v in from_reference_tree(cfg, src, dst).items():
-            dst[name].copy_(_as_tensor(v))
+            t = dst[name]
+            if is_dtensor(t):
+                from ..sharding.specs import local_block
+                t.to_local().copy_(local_block(_as_tensor(v),
+                                               t.device_mesh, t.placements))
+            else:
+                t.copy_(_as_tensor(v))
     step = state["opt"]["step"]
     state["opt"]["step"] = _as_tensor(tree["opt"]["step"]).to(
         device=step.device, dtype=step.dtype).reshape(())

@@ -18,6 +18,11 @@ decayed, and only the unstacked vectors (``final_norm``, ``shared_block``,
 each leaf's reference rank (``ref_ndim``, from
 :func:`repro_torch.models.convert.reference_ndim`); without it a leaf's
 own rank decides.
+
+Parameters, gradients and moments held as DTensors of one placement (the
+launchers' production mesh) are updated on each rank's local blocks: the
+update is elementwise, so no block leaves its rank.  The global norm sums
+every leaf once over all ranks (DTensor's reduction), not once a rank.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..sharding import full, is_dtensor
 from .tree import leaves, tree_map
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -57,13 +63,14 @@ def cosine_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 
 def adamw_init(params: Any, cfg: AdamWConfig) -> Dict[str, Any]:
-    """Zero moments of ``moment_dtype`` beside each parameter and a step
-    count of 0 (int32, on the first parameter's device)."""
+    """Zero moments of ``moment_dtype`` beside each parameter (a DTensor
+    parameter's on its placements, local blocks only) and a step count of
+    0 (int32, on the first parameter's device)."""
     dt = _DTYPES[cfg.moment_dtype]
     first = leaves(params)[0][1]
 
     def zeros(p):
-        return torch.zeros(p.shape, dtype=dt, device=p.device)
+        return torch.zeros_like(p, dtype=dt)
 
     return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=first.device)}
@@ -75,6 +82,7 @@ def global_norm(tree: Any) -> torch.Tensor:
     total = None
     for _, x in leaves(tree):
         s = torch.sum(torch.square(x.float()))
+        s = full(s)  # a DTensor's sum: over all ranks
         total = s if total is None else total + s
     return torch.sqrt(total)
 
@@ -116,7 +124,7 @@ def adamw_update(params: Any, grads: Any, state: Dict[str, Any],
     updated in place and returned; ``ref_ndim`` maps a leaf's path to the
     rank of its reference leaf.  Returns (params, state, {"grad_norm",
     "lr"})."""
-    step = state["step"] + 1
+    step = full(state["step"]) + 1
     step_f = step.float()
     lr = cosine_schedule(cfg, step_f)
     gnorm = global_norm(grads)
@@ -132,10 +140,19 @@ def adamw_update(params: Any, grads: Any, state: Dict[str, Any],
     for path, p in leaves(params):
         rank = p.dim() if ref_ndim is None else ref_ndim[path]
         decay = bool(cfg.weight_decay) and rank >= 2   # matrices only
+        g, mu, nu = g_of[path], mu_of[path], nu_of[path]
+        if is_dtensor(p):
+            # DTensors: this rank's blocks, all of one placement
+            p, g, mu, nu = (t.to_local() for t in (p, g, mu, nu))
         # a large leaf in slices of its rows, so that the float32
         # temporaries stay small beside the optimizer's state
         for sl in _row_slices(p):
-            _update(p[sl], g_of[path][sl], mu_of[path][sl],
-                    nu_of[path][sl], scale, lr, c1, c2, cfg, mdt, decay)
+            _update(p[sl], g[sl], mu[sl], nu[sl], scale, lr, c1, c2, cfg,
+                    mdt, decay)
+    if is_dtensor(state["step"]):       # a replicated DTensor counter
+        from torch.distributed.tensor import DTensor
+        s0 = state["step"]
+        step = DTensor.from_local(step, s0.device_mesh, s0.placements,
+                                  run_check=False)
     return params, {"mu": state["mu"], "nu": state["nu"], "step": step}, \
         {"grad_norm": gnorm, "lr": lr}

@@ -237,14 +237,23 @@ class RecoveringStreamRunner:
         return True
 
     def _load_latest(self) -> Optional[Tuple[int, Any, dict]]:
-        step = self.manager.latest_step()
-        if step is None:
-            self._loaded = None
-            return None
-        if self._loaded is None or self._loaded[0] != step:
-            arrays, meta = self.manager.load_arrays(step)
+        while True:
+            step = self.manager.latest_step()
+            if step is None:
+                self._loaded = None
+                return None
+            if self._loaded is not None and self._loaded[0] == step:
+                return self._loaded
+            try:
+                arrays, meta = self.manager.load_arrays(step)
+            except FileNotFoundError:
+                # an async write published a newer step and collected
+                # this one between the two calls: read the newer one
+                if self.manager.latest_step() != step:
+                    continue
+                raise
             self._loaded = (step, arrays, meta)
-        return self._loaded
+            return self._loaded
 
     def latest_manifest(self) -> Optional[dict]:
         """The newest checkpoint's manifest (``extra``), or None on a

@@ -24,6 +24,8 @@ import tempfile
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional
 
+import torch
+
 from ..checkpoint import CheckpointManager
 from ..core.events import Event
 from .fault_tolerance import (HeartbeatMonitor, RetryPolicy, StepTimer,
@@ -46,6 +48,33 @@ def _is_train_state(state: Any) -> bool:
     return isinstance(state, dict) and isinstance(state.get("params"), Stack)
 
 
+def _writes_checkpoints() -> bool:
+    """Rank 0 of a process group writes the checkpoints; a process outside
+    one writes its own."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _on_host(t):
+    """A tensor's whole value; a DTensor's gathered (a collective) and
+    copied to the host, so that the card holds one whole leaf at a
+    time."""
+    from ..sharding import full, is_dtensor
+    return full(t.detach()).cpu() if is_dtensor(t) else t.detach()
+
+
+def _shape_of(t):
+    """A tensor's global shape and dtype, on ``meta``."""
+    return torch.empty(t.shape, dtype=t.dtype, device="meta")
+
+
+def _gathered_only(t):
+    """A DTensor gathered (a collective) but not kept: another rank
+    writes it."""
+    from ..sharding import full
+    return _shape_of(full(t.detach()))
+
+
 class Trainer:
     def __init__(self, step_fn: Callable, state: Any, data: Any,
                  cfg: TrainerConfig,
@@ -65,12 +94,13 @@ class Trainer:
         self.restores = 0
 
     # ------------------------------------------------------------------
-    def _tree(self) -> Any:
-        """What a checkpoint holds: the reference's tree of a train state,
-        else the state itself."""
+    def _tree(self, leaf=None) -> Any:
+        """What a checkpoint holds: the reference's tree of a train state
+        (each tensor through ``leaf``, :func:`~repro_torch.models.steps.
+        state_tree`), else the state itself."""
         if _is_train_state(self.state):
             from ..models.steps import state_tree
-            return state_tree(self.state, self.state["params"].cfg)
+            return state_tree(self.state, self.state["params"].cfg, leaf)
         return self.state
 
     def _emit_metrics_event(self, step: int, metrics: Dict) -> None:
@@ -84,7 +114,7 @@ class Trainer:
         latest = self.ckpt.latest_step()
         if latest is None:
             return start_step
-        tree, extra = self.ckpt.restore(self._tree())
+        tree, extra = self.ckpt.restore(self._tree(_shape_of))
         if _is_train_state(self.state):
             from ..models.steps import load_state_tree
             load_state_tree(self.state, tree, self.state["params"].cfg)
@@ -93,8 +123,13 @@ class Trainer:
         return int(extra.get("next_step", latest + 1))
 
     def _save(self, step: int, blocking: bool) -> None:
-        self.ckpt.save(step, self._tree(), blocking=blocking,
-                       extra={"next_step": step})
+        # a sharded state's tensors are gathered whole one at a time, every
+        # rank taking part; rank 0 copies each to the host and writes them
+        if _writes_checkpoints():
+            self.ckpt.save(step, self._tree(_on_host), blocking=blocking,
+                           extra={"next_step": step})
+        else:
+            self._tree(_gathered_only)
 
     # ------------------------------------------------------------------
     def run(self, start_step: int = 0, resume: bool = False) -> Dict:

@@ -367,6 +367,26 @@ def test_run_with_retries_exhausts():
         run_with_retries(always, RetryPolicy(max_retries=2, backoff_s=0.01))
 
 
+def test_latest_checkpoint_read_survives_a_concurrent_collection(
+        stream, tmp_path):
+    """An async save that publishes a newer step and collects the one the
+    runner just found (between ``latest_step`` and ``load_arrays``): the
+    runner reads the newer step instead of failing on a deleted file."""
+    chunks = chunks_of(stream, TEvent)
+    d = str(tmp_path / "gc")
+    r1 = RecoveringStreamRunner(t_engine(), d, every=EVERY, keep=1)
+    run_all(r1, chunks, stop=2 * EVERY + 1)
+    r1.close()
+    r2 = RecoveringStreamRunner(t_engine(), d, every=EVERY, keep=1)
+    newest = r2.manager.latest_step()
+    found = iter([newest - 1])
+    real = r2.manager.latest_step
+    r2.manager.latest_step = lambda: next(found, None) or real()
+    assert r2.latest_manifest()["chunk"] == 2 * EVERY
+    assert r2.resume() and r2.chunk_index == 2 * EVERY
+    r2.close()
+
+
 def test_heartbeat_detects_hang():
     hung = threading.Event()
     hb = HeartbeatMonitor(timeout_s=0.1, poll_s=0.02,

@@ -95,10 +95,13 @@ def test_train_entry_points_need_cuda_without_a_device(monkeypatch, tmp_path):
                     "--checkpoint-dir", str(tmp_path)])
 
 
-def test_train_launcher_refuses_multi_pod(tmp_path):
-    """``--multi-pod`` is not ignored: the port trains on one device."""
-    with pytest.raises(SystemExit, match="multi-device"):
-        train.main(["--arch", "qwen2.5-14b", "--smoke", "--multi-pod",
+def test_train_launcher_refuses_multi_pod(tmp_path, monkeypatch):
+    """``--multi-pod`` takes the 2×16×16 mesh of 512 ranks (the mesh of
+    one rank at a world of one); at a world of 4 it is refused before
+    anything is built, naming the meshes the launcher takes."""
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    with pytest.raises(ValueError, match="2×16×16"):
+        train.main(["--arch", "qwen2.5-14b", "--multi-pod",
                     "--device", "cpu", "--checkpoint-dir", str(tmp_path)])
 
 
