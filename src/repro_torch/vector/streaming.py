@@ -19,6 +19,14 @@ a trailing query axis:
   overflow on long streams.
 * **One kernel library** — :attr:`compile_count` counts builds and loads of
   the kernel library in this process, which stays 1 across chunks.
+* **Spans** — under a ``torch.profiler`` session each :meth:`feed_attrs`
+  records three spans (:func:`repro_torch.trace.span`), in this order:
+  ``streaming.device_step``, the host's time to hand the chunk to the
+  device (the pipeline's checks, the ring plan, the launch; the scan runs
+  on after it returns); ``streaming.counts_to_host``, the counts' copy to
+  the host, which first waits for the scan to end; ``streaming.hit_list``,
+  the counts as int64 and the ``(position, lane)`` list of hits.  With no
+  profiler recording, nothing is recorded.
 
 Snapshots (:meth:`snapshot` / :meth:`restore`) use the reference package's
 layout and manifest, so a snapshot taken by either package restores into
@@ -38,6 +46,7 @@ from ..core.selection import apply_strategy
 from ..kernels import ops
 from ..kernels import window as wkern
 from ..kernels.build import LIBRARY
+from ..trace import span
 from . import tecs_arena
 
 _I32_MAX = np.iinfo(np.int32).max
@@ -596,14 +605,18 @@ class StreamingVectorEngine:
                 f"{self._pos + T} exceeds {_I32_MAX}.  reset() the engine "
                 "(its arena would long since have overflowed its capacity "
                 "anyway)")
-        counts_f, roots = self._device_step(attrs, event_ts)
+        with span("streaming.device_step"):
+            counts_f, roots = self._device_step(attrs, event_ts)
         self._pos += T
         if self._single_query:
             counts_f = counts_f[:, :, 0]
-        counts = counts_f.cpu().numpy().astype(np.int64)
-        hit_dims = np.nonzero(counts.sum(axis=-1) if counts.ndim == 3
-                              else counts)
-        hits = [(t0 + int(t), int(b)) for t, b in zip(*hit_dims)]
+        with span("streaming.counts_to_host"):
+            counts_h = counts_f.cpu()
+        with span("streaming.hit_list"):
+            counts = counts_h.numpy().astype(np.int64)
+            hit_dims = np.nonzero(counts.sum(axis=-1) if counts.ndim == 3
+                                  else counts)
+            hits = [(t0 + int(t), int(b)) for t, b in zip(*hit_dims)]
         if roots is not None:
             roots_np = roots.cpu().numpy()
             for p, b in hits:
