@@ -1,5 +1,6 @@
 from . import tecs_arena
 from .engine import VectorEngine, VectorQueryTables
+from .hits import HitList
 from .multiquery import (MultiQueryEngine, Packing, build_packing,
                          check_packing_invariants)
 from .partitioned import PartitionedStreamingEngine, PartitionStats
@@ -9,4 +10,5 @@ from .tecs_arena import ArenaOverflow, ArenaSnapshot
 __all__ = ["VectorEngine", "VectorQueryTables", "StreamingVectorEngine",
            "MultiQueryEngine", "Packing", "build_packing",
            "check_packing_invariants", "PartitionedStreamingEngine",
-           "PartitionStats", "ArenaOverflow", "ArenaSnapshot", "tecs_arena"]
+           "PartitionStats", "HitList", "ArenaOverflow", "ArenaSnapshot",
+           "tecs_arena"]

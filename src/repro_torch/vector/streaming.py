@@ -25,8 +25,10 @@ a trailing query axis:
   device (the pipeline's checks, the ring plan, the launch; the scan runs
   on after it returns); ``streaming.counts_to_host``, the counts' copy to
   the host, which first waits for the scan to end; ``streaming.hit_list``,
-  the counts as int64 and the ``(position, lane)`` list of hits.  With no
-  profiler recording, nothing is recorded.
+  the counts as int64 and the hits as a columnar
+  :class:`~repro_torch.vector.hits.HitList` (a mask of the positions where
+  any query matched, compacted with ``np.flatnonzero``: no Python object a
+  hit).  With no profiler recording, nothing is recorded.
 
 Snapshots (:meth:`snapshot` / :meth:`restore`) use the reference package's
 layout and manifest, so a snapshot taken by either package restores into
@@ -48,6 +50,7 @@ from ..kernels import window as wkern
 from ..kernels.build import LIBRARY
 from ..trace import span
 from . import tecs_arena
+from .hits import HitList
 
 _I32_MAX = np.iinfo(np.int32).max
 
@@ -563,13 +566,15 @@ class StreamingVectorEngine:
 
     # ------------------------------------------------------------------
     def feed(self, streams: Sequence[Sequence[Event]]
-             ) -> Tuple[np.ndarray, List[Tuple[int, int]]]:
+             ) -> Tuple[np.ndarray, HitList]:
         """Feed one chunk of B streams × chunk_len events.
 
         Returns ``(counts, hits)``: counts ``(chunk_len, B)`` int64 match
         counts per position (with a trailing query axis for a
         :class:`MultiQueryEngine`); hits the absolute ``(position,
-        stream)`` pairs with ≥ 1 match.
+        stream)`` pairs with ≥ 1 match, position first, as a
+        :class:`~repro_torch.vector.hits.HitList` (a sequence of int
+        tuples held as two int64 columns).
         """
         if self.window.is_time:
             attrs, ts = self.encoder.encode_streams_ts(
@@ -580,10 +585,11 @@ class StreamingVectorEngine:
         return self.feed_attrs(torch.from_numpy(attrs).to(self.device))
 
     def feed_attrs(self, attrs: torch.Tensor, event_ts=None
-                   ) -> Tuple[np.ndarray, List[Tuple[int, int]]]:
+                   ) -> Tuple[np.ndarray, HitList]:
         """Device-tensor entry point: attrs (chunk_len, B, A) f32 on the
         engine's device; time windows also take ``event_ts (chunk_len, B)``
-        f32, monotone in stream order (audited across feeds)."""
+        f32, monotone in stream order (audited across feeds).  Returns
+        ``(counts, hits)`` as :meth:`feed` does."""
         T, B = attrs.shape[0], attrs.shape[1]
         if T != self.chunk_len or B != self.batch:
             raise ValueError(
@@ -614,9 +620,7 @@ class StreamingVectorEngine:
             counts_h = counts_f.cpu()
         with span("streaming.hit_list"):
             counts = counts_h.numpy().astype(np.int64)
-            hit_dims = np.nonzero(counts.sum(axis=-1) if counts.ndim == 3
-                                  else counts)
-            hits = [(t0 + int(t), int(b)) for t, b in zip(*hit_dims)]
+            hits = HitList.of_counts(counts, t0)
         if roots is not None:
             roots_np = roots.cpu().numpy()
             for p, b in hits:

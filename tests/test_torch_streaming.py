@@ -1,21 +1,31 @@
 """The port's StreamingVectorEngine against the reference package's, on the
 CPU route (tolerance 0: counts, rings and latches must be identical)."""
+import gc
+import random
+import sys
+
 import numpy as np
 import pytest
 import torch
 
+from repro.core.events import Event as JEvent
 from repro.data.streams import StreamSpec as JSpec
 from repro.data.streams import random_stream as j_random
 from repro.data.streams import stock_stream as j_stock
 from repro.kernels.window import WindowOverflowError as JOverflow
 from repro.vector import StreamingVectorEngine as JStreaming
 from repro.vector import VectorEngine as JVector
+from repro.vector import multiquery as jmq
+from repro_torch.core.events import Event as TEvent
 from repro_torch.data import StreamSpec as TSpec
 from repro_torch.data import random_stream as t_random
 from repro_torch.data import stock_stream as t_stock
 from repro_torch.kernels.window import WindowOverflowError as TOverflow
+from repro_torch.runtime.recovery import MatchLog, _hit_key
+from repro_torch.vector import HitList
 from repro_torch.vector import StreamingVectorEngine as TStreaming
 from repro_torch.vector import VectorEngine as TVector
+from repro_torch.vector import multiquery as tmq
 
 STOCK_Q1 = """SELECT * FROM S
     WHERE SELL AS msft ; BUY AS oracle ; BUY AS csco ; SELL AS amat
@@ -189,3 +199,97 @@ def test_engine_defaults_to_cuda():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TVector(query)
     assert TVector(query, device="cpu").device.type == "cpu"
+
+
+PACKED = [f"SELECT * FROM S WHERE {q} WITHIN 7 events"
+          for q in ("A1 ; A2 ; A3", "A1 ; A2+ ; A3", "A2 ; A3")]
+
+
+@pytest.mark.parametrize("kind", ["single", "packed"])
+def test_hit_list_holds_the_pair_contract(kind, tmp_path):
+    """``feed``'s HitList equals the reference's list of pairs, in order,
+    and serves what its callers do with it: tuples of ints, sets, length,
+    truth, indexing, slices, ``(n, 2)`` arrays, list concatenation, the
+    match log's JSON; a feed with no hits gives an empty one."""
+    B, T, chunk = 8, 48, 12
+    if kind == "single":
+        js, ts = engines("count", chunk, B)
+    else:
+        js = JStreaming(jmq.MultiQueryEngine(PACKED, use_pallas=False),
+                        chunk, B)
+        ts = TStreaming(tmq.MultiQueryEngine(PACKED, device="cpu"), chunk, B)
+    j_ss, t_ss = streams("count", B, T, seed=5)
+    log = MatchLog(str(tmp_path / "matches.log"))
+    fed = []
+    for k, (jc, tc) in enumerate(zip(chunks(j_ss, 0, T, chunk),
+                                     chunks(t_ss, 0, T, chunk))):
+        jcount, jhits = js.feed(jc)
+        tcount, thits = ts.feed(tc)
+        np.testing.assert_array_equal(jcount, tcount)
+        assert tcount.ndim == (2 if kind == "single" else 3)
+        assert isinstance(thits, HitList)
+        assert thits == jhits and jhits == thits and thits.tolist() == jhits
+        assert all(type(h) is tuple and len(h) == 2
+                   and all(type(x) is int for x in h) for h in thits)
+        assert set(thits) == set(jhits) and len(thits) == len(jhits)
+        assert bool(thits) == bool(jhits)
+        assert [thits[i] for i in range(len(thits))] == jhits
+        np.testing.assert_array_equal(np.asarray(thits, np.int64),
+                                      np.asarray(jhits, np.int64).reshape(-1, 2))
+        log.append(k, tcount, thits)
+        fed.append(thits)
+    hits = max(fed, key=len)
+    want = hits.tolist()
+    assert len(want) >= 4
+    assert isinstance(hits[1:-1], HitList) and hits[1:-1] == want[1:-1]
+    assert hits[::2] == want[::2] and hits[-1] == want[-1]
+    assert hits == [list(h) for h in want] and hits != want[:-1]
+    assert np.asarray(hits).shape == (len(want), 2)
+    assert [(0, 0)] + hits == [(0, 0)] + want
+    assert hits + [(0, 0)] == want + [(0, 0)]
+    acc = []
+    for f in fed:
+        acc += f
+    assert acc == [h for f in fed for h in f.tolist()]
+    log.close()
+    back = MatchLog(log.path)
+    assert [[_hit_key(h) for h in r["hits"]] for r in back.records] == \
+        [f.tolist() for f in fed]
+    back.close()
+    # A2 ends no query's match
+    _, jnone = js.feed([[JEvent("A2")] * chunk for _ in range(B)])
+    _, tnone = ts.feed([[TEvent("A2")] * chunk for _ in range(B)])
+    assert jnone == [] and tnone == jnone and not tnone and len(tnone) == 0
+    assert np.asarray(tnone, np.int64).shape == (0, 2)
+
+
+def test_feed_allocates_no_object_a_hit():
+    """The hit list is two arrays: a feed ending about 10 000 matches
+    leaves no more live Python objects than one ending about 10 (a tuple a
+    hit would leave some 10 000 more)."""
+    T, B = 64, 512
+    ts = TStreaming(TVector("SELECT * FROM S WHERE A1 ; A3 WITHIN 2 events",
+                            device="cpu"), T, B)
+    rng = random.Random(11)
+
+    def attrs(n_hits):
+        """Lanes of A1 A3 pairs: ``n_hits`` A3s, the rest A2."""
+        types = ["A2"] * (T * B)
+        for i in rng.sample(range(T * B // 2), n_hits):
+            types[2 * i:2 * i + 2] = ["A1", "A3"]
+        ss = [[TEvent(types[b * T + t]) for t in range(T)] for b in range(B)]
+        return torch.from_numpy(ts.encoder.encode_streams(ss))
+
+    def live_blocks(a):
+        gc.collect()
+        before = sys.getallocatedblocks()
+        out = ts.feed_attrs(a)
+        gc.collect()
+        return sys.getallocatedblocks() - before, out
+
+    sparse, dense = attrs(10), attrs(10_000)
+    live_blocks(dense)            # first-call set-up
+    d_sparse, (_, h_sparse) = live_blocks(sparse)
+    d_dense, (_, h_dense) = live_blocks(dense)
+    assert len(h_sparse) == 10 and len(h_dense) == 10_000
+    assert d_dense - d_sparse < 100, (d_sparse, d_dense)
