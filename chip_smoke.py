@@ -94,7 +94,13 @@ started together), then runs these phases, each printing one JSON line:
     chunk, the engine ≡ ``impl="ref"`` (counts, hits, stats, every
     snapshot leaf, enumerated sets); and the paper's stock Q3 ``PARTITION
     BY [volume]`` through ``feed(events)`` ≡ plain ≡ the host
-    ``PartitionedEngine``;
+    ``PartitionedEngine``.  Then 13c, the benchmark's keyed cell: phase
+    9's four packed queries by the plug, 2125 lanes, 40 chunks of
+    262 144 events (keys uniform over the plugs), ``lane_cap`` 208, the
+    ring split over two blocks a lane:
+    counts, hits and the whole state ≡ ``impl="ref"`` after every chunk,
+    every window full by about the 28th chunk, one lane_route and one
+    fused_scan launch a chunk, the plan ``(True, 2)``;
 14. recovery, checkpoints and the ``StreamService`` ingestion loop (in a
     scratch directory under ``build/``, removed afterwards).  14a: the
     service over phase 13's engine (1024 lanes, chunks of 262 144,
@@ -2736,6 +2742,95 @@ def phase_part_exact(seed: int) -> dict:
     out["lane_route_max_abs_err"] = max(route_errs)
     out["seconds"] = time.perf_counter() - t_start
     emit(out)
+    return out
+
+
+def phase_part_packed(seed: int, L: int = 2125, T: int = 262144,
+                      cap: int = 208, n_chunks: int = 40) -> dict:
+    """The benchmark's keyed cell: the four packed queries of phase 9
+    (Ŝ = 28, ring 3208, split over two blocks a lane) partitioned by the
+    plug over 2125 lanes, chunks of 262 144 events with keys uniform over
+    the plugs, ``lane_cap`` 208, through ``feed_keyed`` until every lane's
+    window is full and on: counts, hits and the whole state ≡ the same
+    engine with ``impl="ref"`` after every chunk, one lane_route and one
+    fused_scan launch a chunk and nothing else, the kernel's plan."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_scan import KERNEL
+    from repro_torch.vector import MultiQueryEngine, PartitionedStreamingEngine
+    t_start = time.perf_counter()
+    eps = 3200
+    queries = [PACKED_QUERY.format(q, eps) for q in PACKED_SEQS]
+    key_attrs = ("house_id", "household_id", "plug_id")
+
+    def engine(impl=None):
+        return PartitionedStreamingEngine(MultiQueryEngine(queries,
+                                                           impl=impl),
+                                          key_attrs, T, L, lane_cap=cap)
+    kern, plain = engine(), engine("ref")
+    mq = kern.engine
+    check(mq.packed_states == 28 and mq.ring == 3208, "phase 13c: packed "
+          "geometry is Ŝ=28, ring 3208")
+    dev = kern.device
+    codes = torch.tensor([mq.encoder.vocab["type"][x] for x in PART_TYPES],
+                         dtype=torch.float32, device=dev)
+    table = key_table(L)[:L]
+    rng = np.random.default_rng(seed + 43)
+    per_lane = np.zeros(L, np.int64)
+    full_at, kern_s, plain_s, plans = None, [], [], set()
+    n_hits = matches = 0
+    torch.cuda.synchronize()
+    counters = reset_launches()
+    for i in range(n_chunks):
+        kidx = rng.integers(0, L, T)
+        attrs = codes[torch.from_numpy(
+            rng.integers(0, len(PART_TYPES), T)).to(dev)][:, None]
+        keys = ref.key_bits(torch.from_numpy(table[kidx])).to(dev)
+        (ck, hk), s_k = host_clock(lambda: kern.feed_keyed(attrs, keys))
+        plans.add(KERNEL.last_plan)
+        (cp, hp), s_p = host_clock(lambda: plain.feed_keyed(attrs, keys))
+        kern_s.append(s_k)
+        plain_s.append(s_p)
+        check(same(ck, cp) and hk == hp, f"phase 13c chunk {i}: counts and "
+              "hits kernel ≡ plain")
+        check(same(kern.state, plain.state), f"phase 13c chunk {i}: ring, "
+              "lane tables and positions kernel ≡ plain")
+        per_lane += np.bincount(kidx, minlength=L)
+        if full_at is None and per_lane.min() >= eps:
+            full_at = i
+        n_hits += len(hk)
+        matches += int(ck.sum())
+        check(int(ck.max()) < EXACT_LIMIT, "counts stay below 2^24")
+    launches = read_launches(counters)
+    want = {k: 0 for k in launches}
+    want.update(lane_route=n_chunks, fused_scan=n_chunks)
+    check(launches == want, f"phase 13c launched {launches}, expected one "
+          "lane_route and one fused_scan launch per chunk and none from "
+          "the plain engine")
+    check(plans == {(True, 2)}, f"phase 13c: the ring split over two "
+          f"blocks a lane in shared memory, got plans {plans}")
+    check(full_at is not None and full_at < n_chunks - 1, "phase 13c: "
+          "every lane's window fills before the last chunk")
+    st = kern.stats
+    check(st.spilled_table == st.spilled_capacity == st.evicted_lanes == 0
+          and st.dropped_null == 0 and st.routed == T * n_chunks and
+          vars(st) == vars(plain.stats), f"phase 13c: every event routed, "
+          f"no spill or eviction, stats ≡ plain, got {st}")
+    check(n_hits > 0, "phase 13c: the packed queries match")
+    out = {"phase": "13c", "case": "PARTITION BY the plug, packed queries",
+           "queries": queries, "key": list(key_attrs), "lanes": L, "T": T,
+           "lane_cap": cap, "chunks": n_chunks, "W": mq.ring,
+           "S": mq.packed_states,
+           "ring_GB": L * mq.ring * mq.packed_states * 4 / 1e9,
+           "windows_full_after_chunk": full_at,
+           "chunks_compared_full": n_chunks - 1 - full_at,
+           "launches": launches, "fused_scan_plan": sorted(plans)[0],
+           "stats": vars(st), "matches": matches, "hits": n_hits,
+           "feed_ms_median": 1e3 * float(np.median(kern_s)),
+           "plain_feed_ms_median": 1e3 * float(np.median(plain_s)),
+           "seconds": time.perf_counter() - t_start}
+    emit(out)
+    del kern, plain
+    torch.cuda.empty_cache()
     return out
 
 
@@ -6366,6 +6461,7 @@ def main() -> None:
     wide_res = phase("12 arena at 1024", phase_enum_wide, seed)
     part_res, part_arena = phase("13a partitioned", phase_part, seed)
     exact_res = phase("13b partitioned exactness", phase_part_exact, seed)
+    phase("13c partitioned, packed", phase_part_packed, seed)
     svc_res, kill_res = phase("14 service, recovery", phase_runtime, seed)
     fleet_res, fleet_arena, _, bits16 = phase("15 fleet", phase_fleets, seed)
     dist_res = phase("16 distributed", phase_distributed, seed, part_res,

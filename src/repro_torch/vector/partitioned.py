@@ -25,6 +25,20 @@ and, per chunk on the device:
    keeps its tECS arena (nodes labelled with global positions) and
    :meth:`PartitionedStreamingEngine.enumerate` walks it without replay.
 
+Under a ``torch.profiler`` session each
+:meth:`PartitionedStreamingEngine.feed_keyed` records four spans
+(:func:`repro_torch.trace.span`), in this order, three of them under the
+names :meth:`StreamingVectorEngine.feed_attrs` gives the same layers:
+``streaming.device_step``, the host's time to hand the chunk to the device
+(route, reset, scatter, scan launch, relabel and the stats stack, enqueued;
+the kernels run on after it returns); ``partitioned.stats_to_host``, the
+routing stats' copy and the :class:`PartitionStats` update: the copy first
+waits for the step, so this span is the host's wait for the device, which
+``feed_attrs`` folds into its counts copy; ``streaming.counts_to_host``,
+the counts' copy; ``streaming.hit_list``, the counts as int64, the sum over
+the queries, ``np.nonzero`` and the list of global hit positions.  With no
+profiler recording, nothing is recorded.
+
 The key hash is the process-stable 32-bit hash of
 :func:`repro_torch.core.partition.stable_key_hash`; :meth:`feed` checks that
 no two keys it has seen share a hash.  Snapshots use the reference
@@ -45,6 +59,7 @@ from ..core.selection import apply_strategy
 from ..kernels import ops
 from ..kernels import ref as kref
 from ..kernels import window as wkern
+from ..trace import span
 from . import tecs_arena
 from .streaming import StreamingVectorEngine, _flatten_state, _restore_into
 
@@ -378,37 +393,42 @@ class PartitionedStreamingEngine(StreamingVectorEngine):
                                  device=self.device) if positions is None
                     else torch.from_numpy(pos_arr.astype(np.int32)).to(
                         self.device))
-        counts_f, lanes, roots, stats_t = self._step(attrs, keys, gpos,
-                                                     event_ts)
+        with span("streaming.device_step"):
+            counts_f, lanes, roots, stats_t = self._step(attrs, keys, gpos,
+                                                         event_ts)
         self._pos += T
         self._chunk_idx += 1
 
-        null, spill_cap, kept, routed, evicted, ovf = (
-            int(x) for x in stats_t.cpu().numpy())
-        st = self.stats
-        st.events += T
-        st.dropped_null += null
-        st.spilled_capacity += spill_cap
-        st.routed += kept
-        st.spilled_table += T - routed - null
-        st.evicted_lanes += evicted
-        st.overflow_lanes = ovf                     # latch state
-        st.quarantined_lanes = len(self._quarantined)
+        with span("partitioned.stats_to_host"):
+            null, spill_cap, kept, routed, evicted, ovf = (
+                int(x) for x in stats_t.cpu().numpy())
+            st = self.stats
+            st.events += T
+            st.dropped_null += null
+            st.spilled_capacity += spill_cap
+            st.routed += kept
+            st.spilled_table += T - routed - null
+            st.evicted_lanes += evicted
+            st.overflow_lanes = ovf                     # latch state
+            st.quarantined_lanes = len(self._quarantined)
 
-        counts = counts_f.cpu().numpy().astype(np.int64)        # (T, Q)
-        hit_rows = np.nonzero(counts.sum(axis=-1))[0]
-        if self._single_query:
-            counts = counts[:, 0]
+        with span("streaming.counts_to_host"):
+            counts_h = counts_f.cpu()
+        with span("streaming.hit_list"):
+            counts = counts_h.numpy().astype(np.int64)          # (T, Q)
+            hit_rows = np.nonzero(counts.sum(axis=-1))[0]
+            if self._single_query:
+                counts = counts[:, 0]
+            if positions is None:
+                hits = (base + hit_rows).tolist()
+            else:
+                hits = sorted(pos_arr[hit_rows].tolist())
         if roots is not None:
             roots_np = roots.cpu().numpy()
             lanes_np = lanes.cpu().numpy()
             for t in hit_rows:
                 self._roots[int(pos_arr[t])] = (int(lanes_np[t]),
                                                 roots_np[t])
-        if positions is None:
-            hits = (base + hit_rows).tolist()
-        else:
-            hits = sorted(pos_arr[hit_rows].tolist())
         self._check_overflow()
         return counts, hits
 
