@@ -54,9 +54,11 @@ started together), then runs these phases, each printing one JSON line:
    ``"unfused"`` (each kernel's ring split over ``n_split`` ≥ 2 blocks
    per lane in shared memory) and the plain version; each query ≡ its
    closed form on 8 lanes; both kernels' ``n_split`` and times, with
-   forced splits (fused 2, 4, 8; cea_scan_multi 2, 4), each ≡ plain; then
-   the packed tECS arena at a window of 300 events, 16 lanes: store ≡
-   plain, lane 0 ≡ the host ``Engine`` per query;
+   forced splits (fused 2, 4, 8; cea_scan_multi 2, 4), each ≡ plain; the
+   fused feeds take the sparse step (``sparse_launches``), and the same
+   tables padded past its cap take the dense product, ≡ plain, timed
+   beside it; then the packed tECS arena at a window of 300 events, 16
+   lanes: store ≡ plain, lane 0 ≡ the host ``Engine`` per query;
 10. edge shapes of the kernels against their plain versions (state
     buckets, the wide build past 32 states, query groups past 8, rings of
     exactly ε+1, start 0 and a chunked carry, NaN attributes; forced
@@ -523,7 +525,7 @@ def phase_main(seed: int, B: int = 1024, n_chunks: int = 8):
                                                impl="ref"), T, B)
 
     torch.cuda.synchronize()
-    KERNEL.launches = 0
+    KERNEL.launches = KERNEL.sparse_launches = 0
     feed_s, counts_k, hits_k = [], [], []
     for attrs in chunks:
         t0 = time.perf_counter()
@@ -534,6 +536,10 @@ def phase_main(seed: int, B: int = 1024, n_chunks: int = 8):
     launches = KERNEL.launches
     check(launches == n_chunks, f"main path launched the kernel "
           f"{launches} times, expected {n_chunks}")
+    sparse_launches = KERNEL.sparse_launches
+    check(sparse_launches == 0, f"phase 1's table (7 states, two sources a "
+          f"state) keeps the dense product: {sparse_launches} of "
+          f"{launches} launches took the sparse step")
     check(kern.compile_count == 1, f"compile_count {kern.compile_count}")
     plan = KERNEL.last_plan
     check(plan == (True, 1), f"phase 1's ring (90 KB a lane) stays whole "
@@ -614,6 +620,7 @@ def phase_main(seed: int, B: int = 1024, n_chunks: int = 8):
               "C": t.num_classes, "k": t.num_bits,
               "state_MB": B * W * S * 4 / 1e6,
               "launches": launches, "compile_count": kern.compile_count,
+              "sparse_launches": sparse_launches,
               "use_smem": plan[0], "n_split": plan[1],
               "matches": int(counts_k.sum()), "hits": len(hits_k),
               "max_count": int(counts_k.max()),
@@ -1377,6 +1384,7 @@ def reset_launches() -> dict:
                 "lane_route": lane_route.KERNEL}
     for k in counters.values():
         k.launches = 0
+    fused_scan.KERNEL.sparse_launches = 0
     return counters
 
 
@@ -1552,6 +1560,7 @@ def phase_packed(seed: int, B: int = 1024, n_chunks: int = 8) -> dict:
     """Four standing queries of the Fig. 8 shape packed into one engine
     (Ŝ = 28, k = 9, C = 512, ring 3208): fused, unfused and plain."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fused_scan import KERNEL
     from repro_torch.vector import MultiQueryEngine, StreamingVectorEngine
     T, eps = 256, 3200
     queries = [PACKED_QUERY.format(q, eps) for q in PACKED_SEQS]
@@ -1587,6 +1596,10 @@ def phase_packed(seed: int, B: int = 1024, n_chunks: int = 8) -> dict:
             plan = counters["fused_scan"].last_plan
             check(plan[0] and plan[1] >= 2, f"phase 9's ring (372 KB a "
                   f"lane) is split over blocks in shared memory, got {plan}")
+            sparse_launches = counters["fused_scan"].sparse_launches
+            check(sparse_launches == n_chunks, f"phase 9's packed table "
+                  f"takes the sparse step: {sparse_launches} of "
+                  f"{n_chunks} launches")
         if impl == "unfused":
             scan_plan = counters["cea_scan_multi"].last_plan
             check(scan_plan[0] and scan_plan[1] >= 2, f"phase 9's unfused "
@@ -1671,7 +1684,34 @@ def phase_packed(seed: int, B: int = 1024, n_chunks: int = 8) -> dict:
         fused_split_ms[str(split or "default")] = cuda_ms(
             lambda: fused(st_f, split=split), reps=3)
         del st_f
-    del want_f
+    # the dense product on the same work: the tables padded to 32 states
+    # with 4 that no run enters, all leading to the busiest column, which
+    # so takes more sources than the sparse step's cap
+    S2, dev = 32, t.m_all.device
+    m2 = torch.zeros((pk.num_classes, S2, S2), device=dev)
+    m2[:, :28, :28] = t.m_all
+    m2[:, 28:, int((t.m_all != 0).sum(1).amax(0).argmax())] = 1.0
+    f2 = torch.zeros((4, S2), device=dev)
+    f2[:, :28] = t.finals
+    i2 = torch.zeros(S2, device=dev)
+    i2[:28] = t.init_mask
+    ring2 = torch.zeros((B, mq.ring, S2), device=dev)
+    ring2[..., :28] = ring
+
+    def dense(st):
+        return ops.cer_pipeline(
+            chunks[0], mq.encoder.specs, t.class_of, t.class_ind, m2, f2, st,
+            init_mask=i2, window=mq.window, start_pos=start, inplace=True)
+    sparse_before = KERNEL.sparse_launches
+    got = dense(ring2.clone())
+    check(KERNEL.sparse_launches == sparse_before and
+          same(got[0], want_f[0]) and same(got[1][..., :28], want_f[1]) and
+          not bool(got[1][..., 28:].any()),
+          "phase 9: the tables past the cap take the dense product, ≡ "
+          "plain on one chunk")
+    del got
+    dense_ms = cuda_ms(lambda: dense(ring2), reps=3)
+    del want_f, ring2, m2
     fused_ms = fused_split_ms["default"]
     del st_p
     bound = scan_bound(t.m_all, t.finals, ids, B, mq.ring, 28, 4)
@@ -1695,6 +1735,8 @@ def phase_packed(seed: int, B: int = 1024, n_chunks: int = 8) -> dict:
               "cea_scan_multi_ms_by_n_split": scan_split_ms,
               "fused_scan_ms": fused_ms, "fused_scan_n_split": plan[1],
               "fused_scan_ms_by_n_split": fused_split_ms,
+              "fused_scan_sparse_launches": sparse_launches,
+              "fused_scan_dense_product_ms": dense_ms,
               "bound_ms": bound[0], "bound_by": bound[1],
               "bound_bytes": bound[2], "bound_flops": bound[3],
               "max_abs_err": err,
@@ -1808,6 +1850,9 @@ def phase_nine(seed: int, B: int = 1024, n_chunks: int = 8) -> dict:
         kern = counters["fused_scan" if impl == "fused" else
                         "cea_scan_multi"]
         runs[impl]["plan"] = kern.last_plan
+        check(counters["fused_scan"].sparse_launches == 0,
+              f"phase 11 {impl}: the wide build (Ŝ=63) takes no sparse "
+              "step")
         check(kern.last_plan[0] and kern.last_plan[1] >= 2,
               f"phase 11 {impl}: the ring (812 KB a lane) is split over "
               f"blocks in shared memory, got {kern.last_plan}")
@@ -2399,6 +2444,10 @@ def phase_part(seed: int, L: int = 1024, T: int = 262144, cap: int = 384,
     want.update(lane_route=n_chunks, fused_scan=n_chunks)
     check(launches == want, f"phase 13 launched {launches}, expected one "
           "lane_route and one fused_scan launch per chunk")
+    sparse_launches = KERNEL.sparse_launches
+    check(sparse_launches == 0, f"phase 13: phase 1's table keeps the "
+          f"dense product: {sparse_launches} of {n_chunks} launches took the "
+          f"sparse step")
     peak = torch.cuda.max_memory_allocated() / 1e9
     check(eng.compile_count == 1, f"compile_count {eng.compile_count}")
     check(int((tables[0] != EMPTY_LANE).sum()) == L and all(
@@ -2468,6 +2517,7 @@ def phase_part(seed: int, L: int = 1024, T: int = 262144, cap: int = 384,
         "query": query, "key": "uid", "lanes": L, "T": T, "lane_cap": cap,
         "chunks": n_chunks, "W": W, "S": S,
         "ring_MB": L * W * S * 4 / 1e6, "launches": launches,
+        "sparse_launches": sparse_launches,
         "compile_count": eng.compile_count, "stats": vars(st),
         "matches": int(counts.sum()), "hits": len(hits),
         "feed_ms_per_chunk_median": 1e3 * feed_med,
@@ -2808,6 +2858,9 @@ def phase_part_packed(seed: int, L: int = 2125, T: int = 262144,
           "the plain engine")
     check(plans == {(True, 2)}, f"phase 13c: the ring split over two "
           f"blocks a lane in shared memory, got plans {plans}")
+    sparse_launches = KERNEL.sparse_launches
+    check(sparse_launches == n_chunks, f"phase 13c: the packed table takes "
+          f"the sparse step: {sparse_launches} of {n_chunks} launches")
     check(full_at is not None and full_at < n_chunks - 1, "phase 13c: "
           "every lane's window fills before the last chunk")
     st = kern.stats
@@ -2824,6 +2877,7 @@ def phase_part_packed(seed: int, L: int = 2125, T: int = 262144,
            "windows_full_after_chunk": full_at,
            "chunks_compared_full": n_chunks - 1 - full_at,
            "launches": launches, "fused_scan_plan": sorted(plans)[0],
+           "fused_scan_sparse_launches": sparse_launches,
            "stats": vars(st), "matches": matches, "hits": n_hits,
            "feed_ms_median": 1e3 * float(np.median(kern_s)),
            "plain_feed_ms_median": 1e3 * float(np.median(plain_s)),

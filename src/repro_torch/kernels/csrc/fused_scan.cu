@@ -11,11 +11,13 @@
 // leave the lane's state untouched and emit 0.
 //
 // What bounds it on this card: per event the work is W.S.S multiply-adds in
-// dense form (at most W.S.2 useful ones, since a row of M_all[c] has at most
-// two non-zeros) against only A + NQ floats of device-memory traffic; the
-// (W, S) state itself need cross device memory only once per chunk.  So the
-// floor is the f32 arithmetic (about 67 TFLOP/s), not the 3.35 TB/s memory,
-// as long as the ring stays on chip.
+// dense form (at most W.S.2 useful ones, since a column of M_all[c] of a
+// packed Fig. 8 table has at most two non-zeros) against only A + NQ floats
+// of device-memory traffic; the (W, S) state itself need cross device memory
+// only once per chunk.  So the floor is the f32 arithmetic (about 67
+// TFLOP/s), not the 3.35 TB/s memory, as long as the ring stays on chip;
+// what the dense form pays for, though, is shared-memory instructions, one
+// load of M a multiply-add.
 // What the design does about it: the TPU's sequential grid axis becomes a
 // loop over the chunk's T events inside a block.  A lane's ring is cut into
 // n_split contiguous segments of L = ceil(W / n_split) slots (the last may
@@ -29,27 +31,51 @@
 // picks the smallest n_split whose share fits.  The per-query count of an
 // event is the one thing the segments share: each block reduces its partial
 // sum (warp shuffles, then one value per warp), and with n_split > 1
-// thread 0 adds it to the zeroed output with atomicAdd.  Counts are f32
-// integers, exact below 2^24 whatever the order of summation, so results
-// equal the plain PyTorch version bit for bit.  LAST and CONSUME BY ANY
-// need a lane-wide decision per event (the youngest positive slot; clearing
-// states after any query emits), so they run with n_split = 1: their ring
-// in shared memory when it fits, else in global memory (L2-resident), read
-// and written per event.  Within a block each thread owns slots w = tid,
-// tid + blockDim.x, ..., so slot updates need no synchronisation.  Before
-// its events the block evaluates the predicates of a tile of up to kTile
-// events, one event per thread, into a shared class table (segment 0 also
-// writes the trace).  The class lookup is a direct gather (the TPU kernel's
-// one-hot matmuls avoided gathers), and products skip zero run counts,
-// which keeps the work near the sparse count on real tables.  Rows of up
-// to 32 states live in registers (builds for 8, 16 and 32 states, with
-// M_all[class] staged in shared memory); wider packs, up to 512 states,
-// take the wide build of scan_row.cuh (tiles of 32 output states, M_all
-// read from L2).  Queries are emitted in groups of 8, so a pack of any size
-// takes the same registers; the first group of a narrow build reads the
-// row still in registers, the others read the updated rows back, and
-// LAST's arg-min and CONSUME's clear mask are taken group by group.  wgmma,
-// TMA, thread-block clusters and a sparse M are left for later work.
+// thread 0 adds it to the zeroed output with atomicAdd.  LAST and CONSUME
+// BY ANY need a lane-wide decision per event (the youngest positive slot;
+// clearing states after any query emits), so they run with n_split = 1:
+// their ring in shared memory when it fits, else in global memory
+// (L2-resident), read and written per event.  Within a block each thread
+// owns slots w = tid, tid + blockDim.x, ..., so slot updates need no
+// synchronisation.  Before its events the block evaluates the predicates of
+// a tile of up to kTile events, one event per thread, into a shared class
+// table (segment 0 also writes the trace).  The class lookup is a direct
+// gather (the TPU kernel's one-hot matmuls avoided gathers).
+//
+// The step.  Rows of up to 32 states take the narrow builds (8, 16 and 32
+// states).  In the 32-state build a table whose columns and finals have at
+// most kMaxDeg non-zeros, all 1, takes the sparse step (its own
+// instantiation, kSparse): the wrapper builds, once per table
+// (packed_lists in fused_scan.py), one 32-bit word per class and output
+// state u holding u's sources as bytes, ascending, 0xFF past its
+// in-degree, and one word per query of its final states.  Per event the
+// block stages the class's words and every thread keeps them in registers;
+// per slot it gathers cout[u] = sum of C[w][src] over u's bytes from the
+// row where it lives (shared memory, or global memory on the LAST/CONSUME
+// route), each gather predicated on its byte, so an empty column costs no
+// load.  kSlots rows go through at once, their gathers independent, and
+// nothing branches on u or q: the loads issue back to back.  cout stays in
+// registers with static indices until it is stored, then each query of the
+// first group reads its final states from the stored row.  Clear and seed
+// are applied to the row before the gather.  The terms come in the dense
+// product's order, so every result equals the plain PyTorch version bit
+// for bit.  What bounds the sparse step is instructions: about five a
+// gather (the byte, the predicate, the address, the load, the add), issued
+// by 8 warps an SM whose loads wait on shared memory.  Other tables, and
+// the 8- and 16-state builds, whose short rows make the dense product as
+// fast, keep it: M_all[class] staged in shared memory, a kRow x kRow
+// product that skips zero run counts, and a kRow-long dot per query.  The
+// words live in the dense matrix's shared array, so neither instantiation
+// takes more static shared memory than the dense one that plan_ring is
+// given.  Wider packs, up to 512 states, take the wide build of
+// scan_row.cuh (tiles of 32 output states, M_all read from L2).  Queries
+// are emitted in groups of 8, so a pack of any size takes the same
+// registers; the first group of a narrow build reads the row just written,
+// the others read the updated rows back, and LAST's arg-min and CONSUME's
+// clear mask are taken group by group; one thread a query merges the
+// warps' partial counts.  Counts are f32 integers, exact below 2^24
+// whatever the order of summation.  wgmma, TMA and thread-block clusters
+// are left for later work.
 //
 // Build: see repro_torch/kernels/build.py (nvcc -gencode
 // arch=compute_90a,code=sm_90a, linked with the other kernels into one
@@ -70,6 +96,14 @@ constexpr int kMaxThreads = 256;
 constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kTile = 256;      // events whose classes are tabled at once
 constexpr int kMaxSplit = 65535;  // grid y
+// the longest column or finals list of the sparse step (fused_scan.py
+// SPARSE_CAP): kMaxDeg one-byte sources fill a state's 32-bit word
+constexpr int kMaxDeg = 4;
+constexpr int kNone = 0xFF;  // a list's empty byte
+constexpr int kSparseRow = 32;  // the build that takes the sparse step
+// ring slots a thread steps at once in the sparse step: their gathers
+// overlap, and they share the decoding of each list byte
+constexpr int kSlots = 4;
 
 struct Specs {
   int k;
@@ -83,6 +117,8 @@ struct Args {
   const int* class_of;      // (2^k,)
   const float* m_all;       // (C, S, S)
   const float* finals;      // (NQ, S)
+  const int* trans;         // (C, S) packed column lists, or null
+  const int* flist;         // (NQ,) packed final-state lists
   const float* init;        // (S,)
   const float* latest;      // (NQ,) or null
   const float* consume;     // (NQ, S) or null
@@ -99,20 +135,84 @@ struct Args {
   int timed;
   int use_smem;
   int n_split;              // blocks per lane (grid y)
+  int deg;                  // sources a state (bytes a word); 0: dense
+  int fdeg;                 // final states a query (bytes a word)
 };
+
+// kSlots slots' sparse step, in place: each live row cw[r] <- ((clear ?
+// 0 : cw[r]) + seed.init) . M, M[class] given by its column lists: lst[u]
+// holds the sources of output state u as bytes, ascending, kNone past its
+// in-degree (and for the padding states u >= S); every weight is 1.  Then
+// fv[r][q] = the first query group's counts, from the final-state lists
+// fl[q] (kNone for q >= NQ).  Nothing branches on u or q: the gathers of
+// all rows and states issue back to back, each predicated on its byte, so
+// an empty column costs no shared-memory access.  A dead slot (live[r]
+// false) reads row 0 and writes nothing.  The terms are added in the dense
+// product's order (ascending source), so the sums are the same.
+template <int kRow, int kSlots>
+__device__ __forceinline__ void sparse_rows_step(
+    float* const* cw, const bool* live, int S, const int* lst, int deg,
+    const int* fl, int fdeg, float (*fv)[kQG]) {
+  float cout[kSlots][kRow];
+#pragma unroll
+  for (int r = 0; r < kSlots; ++r)
+#pragma unroll
+    for (int u = 0; u < kRow; ++u) cout[r][u] = 0.f;
+  // sources two at a time: each pair's loads issue before their adds
+  for (int k = 0; k < deg; k += 2) {
+#pragma unroll
+    for (int u = 0; u < kRow; ++u) {
+      const int word = lst[u] >> (8 * k);
+      const int s0 = word & 0xFF, s1 = (word >> 8) & 0xFF;
+#pragma unroll
+      for (int r = 0; r < kSlots; ++r) {
+        const float x0 = s0 != kNone ? cw[r][s0] : 0.f;
+        const float x1 = s1 != kNone ? cw[r][s1] : 0.f;
+        cout[r][u] += x0;
+        cout[r][u] += x1;
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kSlots; ++r)
+    if (live[r])
+#pragma unroll
+      for (int u = 0; u < kRow; ++u)
+        if (u < S) cw[r][u] = cout[r][u];
+#pragma unroll
+  for (int r = 0; r < kSlots; ++r)
+#pragma unroll
+    for (int q = 0; q < kQG; ++q) fv[r][q] = 0.f;
+  for (int k = 0; k < fdeg; ++k) {
+#pragma unroll
+    for (int q = 0; q < kQG; ++q) {
+      const int f = (fl[q] >> (8 * k)) & 0xFF;
+#pragma unroll
+      for (int r = 0; r < kSlots; ++r)
+        fv[r][q] += f != kNone ? cw[r][f] : 0.f;
+    }
+  }
+}
 
 // MAXS is the state bucket: 8, 16 and 32 keep a slot's row in registers;
 // kMaxStates is the wide build (scan_row.cuh).  kMany: more than kQG
 // queries, emitted group by group (always so in the wide build).  Packs of
 // up to kQG queries take a narrow build without the group loop, which
 // would cost registers in the slot loop (8 states: 80 -> 101 a thread).
-template <int MAXS, bool kMany>
+// kSparse: the sparse step (narrow builds, a table the wrapper gave lists
+// for); its own instantiation, so neither step's registers constrain the
+// other's.
+template <int MAXS, bool kMany, bool kSparse>
 __global__ void __launch_bounds__(kMaxThreads)
 fused_scan_kernel(const Args a, const Specs sp) {
   constexpr bool kWide = MAXS > 32;
+  static_assert(!kSparse || MAXS == kSparseRow,
+                "only the 32-state build has the sparse step");
   constexpr int kRow = kWide ? 1 : MAXS;  // staged row width (narrow only)
   extern __shared__ float ring_smem[];
-  __shared__ float sM[kRow * kRow];     // M_all[class], zero-padded
+  // M_all[class] zero-padded, or its column lists (one word a state,
+  // loaded as vectors)
+  __shared__ __align__(16) float sM[kRow * kRow];
   __shared__ float sF[kQG * kRow];      // finals of the first query group
   __shared__ float sInit[kRow];
   __shared__ float sClr[MAXS];          // CONSUME: states to clear
@@ -131,15 +231,21 @@ fused_scan_kernel(const Args a, const Specs sp) {
   const int L = (W + a.n_split - 1) / a.n_split;
   const int w0 = seg * L;
   const int n = min(L, W - w0);
+  int* sL = reinterpret_cast<int*>(sM);
+  // the first query group's final-state lists, for the whole launch
+  int fl[kQG];
+#pragma unroll
+  for (int q = 0; q < kQG; ++q) fl[q] = kSparse && q < NQ ? a.flist[q] : -1;
 
-  if (!kWide) {
+  if (!kSparse && !kWide) {
     for (int i = tid; i < kRow * kRow; i += nth) sM[i] = 0.f;
     for (int i = tid; i < kQG * kRow; i += nth) {
       const int q = i / kRow, s = i % kRow;
       sF[i] = (q < NQ && s < S) ? a.finals[q * S + s] : 0.f;
     }
-    for (int i = tid; i < kRow; i += nth) sInit[i] = i < S ? a.init[i] : 0.f;
   }
+  if (!kWide)
+    for (int i = tid; i < kRow; i += nth) sInit[i] = i < S ? a.init[i] : 0.f;
 
   // The segment: staged into shared memory, or used in place.
   float* cg = a.c + (static_cast<size_t>(b) * W + w0) * S;
@@ -186,9 +292,15 @@ fused_scan_kernel(const Args a, const Specs sp) {
         continue;
       }
       const float* Mg = a.m_all + static_cast<size_t>(sCls[i]) * S * S;
-      if (!kWide)
+      if constexpr (kSparse) {  // padding states u >= S: empty lists
+        // by the last threads: thread 0's warp merges the counts
+        const int* Lg = a.trans + static_cast<size_t>(sCls[i]) * S;
+        for (int u = nth - 1 - tid; u < kRow; u += nth)
+          sL[u] = u < S ? __ldg(Lg + u) : -1;
+      } else if (!kWide) {
         for (int x = tid; x < S * S; x += nth)
           sM[(x / S) * kRow + x % S] = Mg[x];
+      }
       float ts_t = 0.f, bound = 0.f;
       if (a.timed) {
         ts_t = sTs[i];
@@ -197,7 +309,7 @@ fused_scan_kernel(const Args a, const Specs sp) {
       const long long j = static_cast<long long>(start) + t;
       const int jm = pymod(j, W);
       const int em = pymod(j - a.epsilon - 1, W);
-      __syncthreads();  // sM ready
+      __syncthreads();  // sM (or the lists) ready
 
       // per-query partials of the current group of kQG queries
       float psum[kQG], pval[kQG];
@@ -209,54 +321,123 @@ fused_scan_kernel(const Args a, const Specs sp) {
         page[q] = INT_MAX;
       }
       bool over = false;
-      for (int wl = tid; wl < n; wl += nth) {
-        const int w = w0 + wl;
-        float* cw = ring + static_cast<size_t>(wl) * rs;
-        const bool seed = w == jm;
-        bool clear;
-        if (a.timed) {
-          const bool expire = tsr[wl] < bound;
-          over |= seed && !expire;
-          clear = seed || expire;
-          if (seed) tsr[wl] = ts_t;
-        } else {
-          clear = seed || w == em;
-        }
-        if (kWide) {
-          wide_row_step(cw, S, clear, seed, a.init, 0, Mg);
-          continue;  // every query group reads the rows back below
-        }
-        float cin[kRow], cout[kRow];
-#pragma unroll
-        for (int s = 0; s < kRow; ++s) {
-          cin[s] = (s < S && !clear) ? cw[s] : 0.f;
-          if (seed) cin[s] += sInit[s];
-          cout[s] = 0.f;
-        }
-#pragma unroll
-        for (int s = 0; s < kRow; ++s) {
-          const float v = cin[s];
-          if (v != 0.f) {
-#pragma unroll
-            for (int u = 0; u < kRow; ++u) cout[u] += v * sM[s * kRow + u];
+      if constexpr (kSparse) {
+        // slot wl's window rule: seeded at jm, cleared when seeded or
+        // expired; a time window stamps the seed and may latch ovf
+        auto slot_flags = [&](int wl, bool& seed, bool& clear) {
+          const int w = w0 + wl;
+          seed = w == jm;
+          if (a.timed) {
+            const bool expire = tsr[wl] < bound;
+            over |= seed && !expire;
+            clear = seed || expire;
+            if (seed) tsr[wl] = ts_t;
+          } else {
+            clear = seed || w == em;
           }
-        }
+        };
+        // the first query group's counts at global slot w: its sums and,
+        // for LAST, the youngest positive slot
+        auto add_counts = [&](int w, const float* fv) {
+          int age = jm - w;
+          if (age < 0) age += W;
 #pragma unroll
-        for (int s = 0; s < kRow; ++s)
-          if (s < S) cw[s] = cout[s];
-        int age = jm - w;
-        if (age < 0) age += W;
-        // the first query group, from the row still in registers
+          for (int q = 0; q < kQG; ++q) {
+            if (q < NQ) {
+              const float v = fv[q];
+              psum[q] += v;
+              if (v > 0.f && age < page[q]) {
+                page[q] = age;
+                pval[q] = v;
+              }
+            }
+          }
+        };
+        int lst[kRow];  // the event's column lists, in registers
 #pragma unroll
-        for (int q = 0; q < kQG; ++q) {
-          if (q < NQ) {
-            float v = 0.f;
+        for (int u = 0; u < kRow; ++u) lst[u] = sL[u];
+        // rows at base + wl * stride: called with the shared ring or the
+        // global one, so the compiler sees which space it gathers from
+        auto step = [&](float* base, int stride) {
+          for (int wl0 = tid; wl0 < n; wl0 += kSlots * nth) {
+            float* cw[kSlots];
+            bool live[kSlots];
 #pragma unroll
-            for (int u = 0; u < kRow; ++u) v += cout[u] * sF[q * kRow + u];
-            psum[q] += v;
-            if (v > 0.f && age < page[q]) {
-              page[q] = age;
-              pval[q] = v;
+            for (int r = 0; r < kSlots; ++r) {
+              const int wl = wl0 + r * nth;
+              live[r] = wl < n;
+              cw[r] = base + static_cast<size_t>(live[r] ? wl : wl0) * stride;
+              if (live[r]) {
+                bool seed, clear;
+                slot_flags(wl, seed, clear);
+                if (clear || seed)
+                  for (int s = 0; s < S; ++s)
+                    cw[r][s] = (clear ? 0.f : cw[r][s]) +
+                               (seed ? sInit[s] : 0.f);
+              }
+            }
+            float fv[kSlots][kQG];
+            sparse_rows_step<kRow, kSlots>(cw, live, S, lst, a.deg, fl,
+                                           a.fdeg, fv);
+#pragma unroll
+            for (int r = 0; r < kSlots; ++r)
+              if (live[r]) add_counts(w0 + wl0 + r * nth, fv[r]);
+          }
+        };
+        if (a.use_smem)
+          step(ring_smem, rs);
+        else
+          step(cg, S);
+      } else {
+        for (int wl = tid; wl < n; wl += nth) {
+          const int w = w0 + wl;
+          float* cw = ring + static_cast<size_t>(wl) * rs;
+          const bool seed = w == jm;
+          bool clear;
+          if (a.timed) {
+            const bool expire = tsr[wl] < bound;
+            over |= seed && !expire;
+            clear = seed || expire;
+            if (seed) tsr[wl] = ts_t;
+          } else {
+            clear = seed || w == em;
+          }
+          if (kWide) {
+            wide_row_step(cw, S, clear, seed, a.init, 0, Mg);
+            continue;  // every query group reads the rows back below
+          }
+          float cin[kRow], cout[kRow];
+#pragma unroll
+          for (int s = 0; s < kRow; ++s) {
+            cin[s] = (s < S && !clear) ? cw[s] : 0.f;
+            if (seed) cin[s] += sInit[s];
+            cout[s] = 0.f;
+          }
+#pragma unroll
+          for (int s = 0; s < kRow; ++s) {
+            const float v = cin[s];
+            if (v != 0.f) {
+#pragma unroll
+              for (int u = 0; u < kRow; ++u) cout[u] += v * sM[s * kRow + u];
+            }
+          }
+#pragma unroll
+          for (int s = 0; s < kRow; ++s)
+            if (s < S) cw[s] = cout[s];
+          int age = jm - w;
+          if (age < 0) age += W;
+          // the first query group, from the row still in registers
+#pragma unroll
+          for (int q = 0; q < kQG; ++q) {
+            if (q < NQ) {
+              float v = 0.f;
+#pragma unroll
+              for (int u = 0; u < kRow; ++u) v += cout[u] * sF[q * kRow + u];
+              psum[q] += v;
+              if (v > 0.f && age < page[q]) {
+                page[q] = age;
+                pval[q] = v;
+              }
             }
           }
         }
@@ -297,8 +478,10 @@ fused_scan_kernel(const Args a, const Specs sp) {
         }
         __syncthreads();  // per-warp partials ready; every read of sM is done
 
-        if (tid == 0) {
-          for (int q = 0; q < nq; ++q) {
+        {  // one thread a query; CONSUME's clear mask adds up in order
+          const int qa = a.consume ? 0 : tid;
+          const int qb = a.consume ? (tid == 0 ? nq : 0) : min(tid + 1, nq);
+          for (int q = qa; q < qb; ++q) {
             float sum = 0.f, val = 0.f;
             int age = INT_MAX;
             for (int wp = 0; wp < nwarps; ++wp) {
@@ -347,7 +530,9 @@ fused_scan_kernel(const Args a, const Specs sp) {
 
 template <int MAXS>
 cudaError_t max_dynamic_smem(int* out) {
-  constexpr bool kWide = MAXS > 32;  // both flags take the same static smem
+  // both kMany flags take the same static smem; the sparse step's takes
+  // less (it keeps no finals row), so this limit holds for it too
+  constexpr bool kWide = MAXS > 32;
   int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -355,32 +540,41 @@ cudaError_t max_dynamic_smem(int* out) {
                              dev);
   if (e != cudaSuccess) return e;
   cudaFuncAttributes attr;
-  e = cudaFuncGetAttributes(&attr, fused_scan_kernel<MAXS, kWide>);
+  e = cudaFuncGetAttributes(&attr, fused_scan_kernel<MAXS, kWide, false>);
   if (e != cudaSuccess) return e;
   *out = optin - static_cast<int>(attr.sharedSizeBytes);
   return cudaSuccess;
 }
 
-template <int MAXS, bool kMany>
+template <int MAXS, bool kMany, bool kSparse>
 cudaError_t run(const Args& a, const Specs& sp, int threads, size_t smem,
                 cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      fused_scan_kernel<MAXS, kMany>,
+      fused_scan_kernel<MAXS, kMany, kSparse>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   const dim3 grid(a.B, a.n_split);
-  fused_scan_kernel<MAXS, kMany><<<grid, threads, smem, stream>>>(a, sp);
+  fused_scan_kernel<MAXS, kMany, kSparse>
+      <<<grid, threads, smem, stream>>>(a, sp);
   return cudaGetLastError();
+}
+
+template <int MAXS, bool kMany>
+cudaError_t run_step(const Args& a, const Specs& sp, int threads,
+                     size_t smem, cudaStream_t stream) {
+  if constexpr (MAXS == kSparseRow)
+    if (a.deg > 0) return run<MAXS, kMany, true>(a, sp, threads, smem, stream);
+  return run<MAXS, kMany, false>(a, sp, threads, smem, stream);
 }
 
 template <int MAXS>
 cudaError_t launch(const Args& a, const Specs& sp, int threads, size_t smem,
                    cudaStream_t stream) {
   if constexpr (MAXS > 32) {
-    return run<MAXS, true>(a, sp, threads, smem, stream);
+    return run<MAXS, true, false>(a, sp, threads, smem, stream);
   } else {
-    if (a.NQ > kQG) return run<MAXS, true>(a, sp, threads, smem, stream);
-    return run<MAXS, false>(a, sp, threads, smem, stream);
+    if (a.NQ > kQG) return run_step<MAXS, true>(a, sp, threads, smem, stream);
+    return run_step<MAXS, false>(a, sp, threads, smem, stream);
   }
 }
 
@@ -399,23 +593,32 @@ int fused_scan_max_dynamic_smem(int max_s, int* out) {
 }
 
 // One chunk over grid (B, n_split).  With n_split > 1, `matches` must be
-// zeroed and the call may take neither LAST nor CONSUME.
+// zeroed and the call may take neither LAST nor CONSUME.  `trans` (C, S) and
+// `flist` (NQ,) are the packed column and final-state lists of the sparse
+// step (the 32-state build only; up to `deg` and `fdeg` one-byte sources a
+// word), or null for the dense product.
 int fused_scan_launch(const float* attrs, const int* spec_col,
                       const int* spec_op, const float* spec_thr, int k,
                       const int* class_of, const float* m_all,
-                      const float* finals, const float* init,
+                      const float* finals, const int* trans,
+                      const int* flist, const float* init,
                       const float* latest, const float* consume, float* c,
                       float* ts_ring, unsigned char* ovf,
                       const float* event_ts, const int* start,
                       const int* valid, float* matches, int* trace, int T,
                       int B, int A, int S, int NQ, int W, int epsilon,
                       float time_size, int timed, int max_s, int threads,
-                      int use_smem, int n_split, void* stream) {
+                      int use_smem, int n_split, int deg, int fdeg,
+                      void* stream) {
   if (k < 0 || k > kMaxBits || NQ < 1 || S < 1 || S > max_s ||
       threads < 32 || threads > kMaxThreads || threads % 32 != 0 || B < 1 ||
       W < 1 || n_split < 1 || n_split > W || n_split > kMaxSplit ||
       (n_split > 1 && (latest || consume)))
     return cudaErrorInvalidValue;
+  if (trans && (max_s != kSparseRow || !flist || deg < 1 ||
+                deg > kMaxDeg || fdeg < 1 || fdeg > kMaxDeg))
+    return cudaErrorInvalidValue;
+  if (!trans) deg = fdeg = 0;
   Specs sp;
   sp.k = k;
   for (int i = 0; i < k; ++i) {
@@ -423,9 +626,10 @@ int fused_scan_launch(const float* attrs, const int* spec_col,
     sp.op[i] = spec_op[i];
     sp.thr[i] = spec_thr[i];
   }
-  Args a{attrs, class_of, m_all, finals, init, latest, consume, c, ts_ring,
-         ovf, event_ts, start, valid, matches, trace, T, B, A, S, NQ, W,
-         epsilon, time_size, timed, use_smem, n_split};
+  Args a{attrs, class_of, m_all, finals, trans, flist, init, latest,
+         consume, c, ts_ring, ovf, event_ts, start, valid, matches, trace, T,
+         B, A, S, NQ, W, epsilon, time_size, timed, use_smem, n_split, deg,
+         fdeg};
   const size_t L = (static_cast<size_t>(W) + n_split - 1) / n_split;
   const size_t smem =
       use_smem ? (L * (S | 1) + (timed ? L : 0)) * sizeof(float) : 0;

@@ -14,6 +14,14 @@ per-query counts with ``atomicAdd``; LAST and CONSUME BY ANY, which need a
 lane-wide decision per event, keep one block per lane and a ring that does
 not fit stays in global memory.  The results are the same bit for bit.
 
+The 32-state build steps a slot's row through index lists
+(:func:`packed_lists`): for each output state, the source states of its
+column of ``M_all[class]``, and for each query its final states, one byte
+each.  They are built once per table and kept on the table tensor
+(:func:`table_lists`), so a feed adds no device operation and no sync.  A
+table with a list longer than :data:`SPARSE_CAP`, or with a non-zero other
+than 1, keeps the dense product, as the other builds do.
+
 Use :func:`repro_torch.kernels.ops.cer_pipeline`, which routes CUDA tensors
 here and CPU tensors to the plain version in :mod:`repro_torch.kernels.ref`.
 """
@@ -35,6 +43,15 @@ MAX_THREADS = 256
 STATE_BUCKETS = (8, 16, 32, 512)
 MAX_STATES = STATE_BUCKETS[-1]
 MAX_SPLIT = 65535   # blocks per lane (the grid's y extent)
+#: the longest column or final-state list the sparse step takes: a source
+#: is one byte of the 32-bit word the kernel keeps in a register per state
+#: (a narrow build's states fit a byte), so four fill it.  Only the 32-state
+#: build takes the step: on an H100 it ran 1.7-1.9x faster than the dense
+#: product there (two sources a state), while at 16 states it ran 0.67-1.35x
+#: and at 8 states 0.92x, where the dense product's row is short.
+SPARSE_CAP = 4
+SPARSE_BUCKET = STATE_BUCKETS[-2]
+NONE = 0xFF   # a packed list's empty byte
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,14 +62,16 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 class FusedScanKernel:
-    """The kernel's binding and its launch counter.
+    """The kernel's binding and its launch counters.
 
-    ``launches`` counts kernel launches (one per :meth:`__call__`);
-    ``last_plan`` is the ``(use_smem, n_split)`` of the latest launch.
+    ``launches`` counts kernel launches (one per :meth:`__call__`), and
+    ``sparse_launches`` those that took the sparse step; ``last_plan`` is
+    the ``(use_smem, n_split)`` of the latest launch.
     """
 
     def __init__(self):
         self.launches = 0
+        self.sparse_launches = 0
         self.last_plan = None
         self._lib = None
         self._smem_limit = {}
@@ -65,8 +84,8 @@ class FusedScanKernel:
         lib = LIBRARY.get()
         lib.fused_scan_launch.restype = _I
         lib.fused_scan_launch.argtypes = (
-            [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-             _P, _P, _P] + [_I] * 7 + [ctypes.c_float] + [_I] * 5 + [_P])
+            [_P, _P, _P, _P, _I] + [_P] * 16 + [_I] * 7 + [ctypes.c_float]
+            + [_I] * 7 + [_P])
         lib.fused_scan_max_dynamic_smem.restype = _I
         lib.fused_scan_max_dynamic_smem.argtypes = [_I, ctypes.POINTER(_I)]
         self._lib = lib
@@ -154,6 +173,8 @@ class FusedScanKernel:
                                  "contiguous")
 
         max_s = state_bucket(S)
+        lists = table_lists(m_all, finals_q)
+        (trans, deg), (flist, fdeg) = lists or ((None, 0), (None, 0))
         with torch.cuda.device(dev):
             lib = self.library()
             use_smem, n_split = plan_ring(
@@ -174,17 +195,100 @@ class FusedScanKernel:
                 (_I * max(k, 1))(*[int(s[1]) for s in specs]),
                 (ctypes.c_float * max(k, 1))(*[float(s[2]) for s in specs]),
                 k, class_of.data_ptr(), m_all.data_ptr(),
-                finals_q.data_ptr(), init_mask.data_ptr(), _ptr(latest_q),
+                finals_q.data_ptr(), _ptr(trans), _ptr(flist),
+                init_mask.data_ptr(), _ptr(latest_q),
                 _ptr(consume_sq), c.data_ptr(), _ptr(ts_ring), _ptr(ovf),
                 _ptr(event_ts), start.data_ptr(), valid.data_ptr(),
                 matches.data_ptr(), _ptr(trace), T, B, A, S, NQ, W,
                 int(epsilon), ctypes.c_float(time_size if timed else 0.0),
-                int(timed), max_s, threads, int(use_smem), n_split, stream)
+                int(timed), max_s, threads, int(use_smem), n_split, deg,
+                fdeg, stream)
         if err != 0:
             raise RuntimeError(f"fused_scan launch failed: CUDA error {err}")
         self.launches += 1
+        self.sparse_launches += lists is not None
         self.last_plan = (use_smem, n_split)
         return (matches, trace) if return_trace else matches
+
+
+def column_lists(table: torch.Tensor, cap: int = SPARSE_CAP
+                 ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """The non-zeros of each column of ``table`` (..., R, N), as index
+    lists along R: ``(src, w)``, both (..., D, N), where column n holds
+    ``table[..., src[k, n], n] == w[k, n]`` for its k-th non-zero in
+    ascending row order, and ``w`` is 0 past its count.  D is the most
+    non-zeros of any column (at least 1).  None when D exceeds ``cap``:
+    such a table keeps the dense product.  ``src`` is int32."""
+    nz = table != 0
+    deg = int(nz.sum(-2).max()) if table.numel() else 0
+    if deg > cap:
+        return None
+    # non-zeros first, each column's in ascending row order
+    src = torch.sort(nz.to(torch.int8), dim=-2, descending=True,
+                     stable=True).indices.narrow(-2, 0, max(deg, 1))
+    return src.to(torch.int32), torch.gather(table, -2, src)
+
+
+def packed_lists(table: torch.Tensor, cap: int = SPARSE_CAP
+                 ) -> Optional[Tuple[torch.Tensor, int]]:
+    """``table`` (..., R, N) as the sparse step reads it: ``(words, D)``,
+    where ``words`` (..., N) int32 holds column n's sources as bytes, the
+    k-th non-zero's row in byte k, and 0xFF in every byte past its count.
+    None past ``cap``, or if a non-zero is not 1 (the step adds the sources
+    up unweighted): such a table keeps the dense product.  Syncs with the
+    device once."""
+    cols = column_lists(table, cap)
+    if cols is None or not bool(((table == 0) | (table == 1)).all()):
+        return None
+    src, w = cols
+    D = src.shape[-2]
+    byte = torch.where(w != 0, src.long(), NONE)
+    word = torch.full(byte.shape[:-2] + byte.shape[-1:],
+                      sum(NONE << (8 * k) for k in range(D, SPARSE_CAP)),
+                      dtype=torch.int64, device=table.device)
+    for k in range(D):
+        word += byte[..., k, :] << (8 * k)
+    # the 32-bit pattern, as int32
+    return torch.where(word >= 2 ** 31, word - 2 ** 32, word).to(
+        torch.int32).contiguous(), D
+
+
+def table_cap(S: int) -> int:
+    """The longest list a table of ``S`` states takes to the sparse step:
+    :data:`SPARSE_CAP` in the 32-state build, 0 (the dense product) in the
+    others."""
+    return SPARSE_CAP if STATE_BUCKETS[-3] < S <= SPARSE_BUCKET else 0
+
+
+_CACHE = "_fused_scan_lists"
+
+
+def _cached(t: torch.Tensor, build):
+    """``build(t)``, kept on ``t``'s base tensor under its view geometry and
+    version counter: built again only after an in-place write.  Inference
+    tensors carry no version counter; their tables are taken as fixed."""
+    owner = t if t._base is None else t._base
+    key = (t.storage_offset(), tuple(t.shape), t.stride())
+    version = -1 if t.is_inference() else t._version
+    cache = owner.__dict__.setdefault(_CACHE, {})
+    hit = cache.get(key)
+    if hit is None or hit[0] != version:
+        hit = cache[key] = (version, build(t))
+    return hit[1]
+
+
+def table_lists(m_all: torch.Tensor, finals_q: torch.Tensor
+                ) -> Optional[Tuple[Tuple[torch.Tensor, int],
+                                    Tuple[torch.Tensor, int]]]:
+    """``(transition lists, final lists)`` of ``M_all`` (C, S, S) and the
+    finals (NQ, S) (:func:`packed_lists`, each query's final states as a
+    word), each built once per table, or None if either takes the dense
+    product (:func:`table_cap`)."""
+    if table_cap(m_all.shape[-1]) == 0:
+        return None
+    trans = _cached(m_all, packed_lists)
+    flist = _cached(finals_q, lambda f: packed_lists(f.t()))
+    return None if trans is None or flist is None else (trans, flist)
 
 
 def check_launchable(*, T: int, B: int, S: int, NQ: int, k: int, W: int,

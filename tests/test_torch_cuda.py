@@ -39,23 +39,58 @@ def dev():
     return torch.device("cuda")
 
 
-def random_tables(rng, S, C, A, k, NQ):
+def random_tables(rng, S, C, A, k, NQ, tables="dense"):
     """Random tables whose rows hold at most one 1, so run counts cannot
     grow past 2^24 however wide the window; branching tables are covered by
-    the real queries of the streaming test and of chip_smoke.py."""
+    the real queries of the streaming test and of chip_smoke.py.
+
+    ``tables="dense"``: any column in-degree, and class 0's state 1 the
+    target of SPARSE_CAP + 1 states, so the narrow builds must keep the
+    dense product.  ``"sparse"``: at most SPARSE_CAP sources a column in
+    the 32-state build (3 elsewhere) and 1 or 2 final states a query, the
+    first the target of the seeded state 1 in every class, so the 32-state
+    build takes the sparse step and every lane matches."""
     specs = tuple((int(rng.integers(0, A)), int(rng.integers(0, 6)),
                    float(np.float32(rng.normal()))) for _ in range(k))
     class_of = rng.integers(0, C, 1 << k).astype(np.int32)
     M = np.zeros((C, S, S), np.float32)
-    for s in range(1, S):
-        for c in range(C):
-            if rng.random() < 0.8:
-                M[c, s, rng.integers(1, S)] = 1.0
-    finals = (rng.random((NQ, S)) < 0.4).astype(np.float32)
+    cap = fused_scan.SPARSE_CAP
+    most = fused_scan.table_cap(S) or 3
+    # the sparse tables' first final state (no draw for the dense ones)
+    first = int(rng.integers(1, S)) if tables == "sparse" else 0
+    for c in range(C):
+        deg = np.zeros(S, np.int64)
+        for s in range(1, S):
+            if tables == "sparse" and s == 1:
+                u = first                 # every class: a seed reaches it
+            elif rng.random() < 0.8:
+                free = [u for u in range(1, S)
+                        if tables == "dense" or deg[u] < most]
+                if not free:
+                    continue
+                u = rng.choice(free)
+            else:
+                continue
+            M[c, s, u] = 1.0
+            deg[u] += 1
+    if tables == "dense":
+        M[0, :cap + 1] = 0.0
+        M[0, :cap + 1, 1] = 1.0
+        finals = (rng.random((NQ, S)) < 0.4).astype(np.float32)
+    else:
+        finals = np.zeros((NQ, S), np.float32)
+        finals[:, first] = 1.0
+        finals[1::2, rng.integers(1, S)] = 1.0
     finals[:, 0] = 0.0
     init = np.zeros(S, np.float32)
     init[1] = 1.0
     return specs, class_of, M, finals, init
+
+
+def takes_sparse_step(tables, S):
+    """The 32-state build takes the sparse step on tables within the cap;
+    the others keep the dense product."""
+    return tables == "sparse" and fused_scan.table_cap(S) > 0
 
 
 def equal(a, b):
@@ -64,22 +99,25 @@ def equal(a, b):
     return a.dtype == b.dtype and torch.equal(a, b)
 
 
-# (S, NQ, W-or-size, timed): the 8/16/32-state builds, a ring too large for
+# (S, NQ, W-or-size, timed): the 8/16/32-state builds, rings too large for
 # shared memory (W·S·4 > 227 KB), time windows, several queries; the wide
 # build (S > 32) and query groups past 8
 CASES = [(5, 1, 7, False), (9, 2, 31, False), (26, 3, 100, False),
          (15, 1, 4000, False), (7, 2, 9.0, True), (13, 1, 40.0, True),
-         (40, 9, 31, False), (70, 11, 9.0, True), (20, 17, 12, False)]
+         (40, 9, 31, False), (70, 11, 9.0, True), (20, 17, 12, False),
+         (28, 2, 2100, False), (24, 2, 9.0, True)]
 
 
 @pytest.mark.parametrize("S,NQ,win,timed", CASES)
 @pytest.mark.parametrize("latest,consume", [(False, False), (True, True),
                                             (True, False), (False, True)])
+@pytest.mark.parametrize("tables", ["dense", "sparse"])
 def test_kernel_matches_plain_version(dev, S, NQ, win, timed, latest,
-                                      consume):
+                                      consume, tables):
     rng = np.random.default_rng(S * 31 + NQ)
     B, T, A, k, C = 37, 64, 3, 5, 6
-    specs, class_of, M, finals, init = random_tables(rng, S, C, A, k, NQ)
+    specs, class_of, M, finals, init = random_tables(rng, S, C, A, k, NQ,
+                                                     tables)
     attrs = rng.normal(size=(T, B, A)).astype(np.float32)
     attrs[rng.random((T, B, A)) < 0.05] = np.nan
     ts = np.cumsum(rng.integers(0, 3, (T, B)), axis=0).astype(np.float32)
@@ -112,12 +150,15 @@ def test_kernel_matches_plain_version(dev, S, NQ, win, timed, latest,
                   rng.integers(0, T + 1, B)).to(dev),
               return_trace=True, latest_q=latest_q, consume_sq=consume_sq)
     launches = fused_scan.KERNEL.launches
+    sparse = fused_scan.KERNEL.sparse_launches
     got = ops.cer_pipeline(*args, c0, impl="fused", **kw)
     torch.cuda.synchronize()
     assert fused_scan.KERNEL.launches == launches + 1
+    assert fused_scan.KERNEL.sparse_launches == sparse + takes_sparse_step(
+        tables, S)
     # the 4000-slot ring does not fit one block: a sum-only call splits
     # it over two blocks, LAST or CONSUME reads it in global memory
-    if S == 15:
+    if S in (15, 28):
         want_plan = (False, 1) if latest or consume else (True, 2)
     else:
         want_plan = (True, 1)
@@ -132,19 +173,22 @@ def test_kernel_matches_plain_version(dev, S, NQ, win, timed, latest,
 # past 8, the four state builds; eps None is a time window of rate bound W
 SPLIT_CASES = [(5, 1, 31, 30), (9, 8, 23, 9), (26, 3, 17, 16),
                (7, 1, 37, None), (13, 8, 29, None), (45, 10, 23, 9),
-               (33, 9, 29, None)]
+               (33, 9, 29, None), (30, 8, 29, None)]
 
 
 @pytest.mark.parametrize("S,NQ,W,eps", SPLIT_CASES)
 @pytest.mark.parametrize("split", [2, 3, 5])
-def test_forced_split_matches_plain_version(dev, S, NQ, W, eps, split):
+@pytest.mark.parametrize("tables", ["dense", "sparse"])
+def test_forced_split_matches_plain_version(dev, S, NQ, W, eps, split,
+                                            tables):
     """Each block keeps a share of the ring: counts, trace, ring, ts ring
     and ovf equal the plain version exactly, with the seed and expiry slots
     on the first and last slot of every segment."""
     rng = np.random.default_rng(S * 13 + NQ + split)
     T, A, k, C = 64, 3, 5, 6
     timed = eps is None
-    specs, class_of, M, finals, init = random_tables(rng, S, C, A, k, NQ)
+    specs, class_of, M, finals, init = random_tables(rng, S, C, A, k, NQ,
+                                                     tables)
     use_smem, n = fused_scan.plan_ring(W, S, timed, 10 ** 6, latest=False,
                                        consume=False, split=split)
     segs = fused_scan.segments(W, n)
@@ -186,9 +230,12 @@ def test_forced_split_matches_plain_version(dev, S, NQ, W, eps, split):
               valid_counts=torch.from_numpy(valid).to(dev),
               return_trace=True)
     launches = fused_scan.KERNEL.launches
+    sparse = fused_scan.KERNEL.sparse_launches
     got = ops.cer_pipeline(*args, c0, impl="fused", split=split, **kw)
     torch.cuda.synchronize()
     assert fused_scan.KERNEL.launches == launches + 1
+    assert fused_scan.KERNEL.sparse_launches == sparse + takes_sparse_step(
+        tables, S)
     assert fused_scan.KERNEL.last_plan == (True, n) and n > 1
     want = ops.cer_pipeline(*args, c0, impl="ref", **kw)
     for g, w in zip(got, want):
@@ -200,12 +247,16 @@ def test_forced_split_matches_plain_version(dev, S, NQ, W, eps, split):
 
 
 @pytest.mark.parametrize("split", [1, 2])
-def test_forced_split_in_global_memory_matches_plain_version(dev, split):
+@pytest.mark.parametrize("tables", ["dense", "sparse"])
+@pytest.mark.parametrize("S", [15, 28])
+def test_forced_split_in_global_memory_matches_plain_version(dev, split,
+                                                             tables, S):
     """A forced split whose share does not fit shared memory (480 KB a
-    lane) reads its segment of the ring in global memory."""
+    lane at 15 states) reads its segment of the ring in global memory."""
     rng = np.random.default_rng(split)
-    S, NQ, W, eps, B, T, A, k, C = 15, 2, 8000, 7990, 9, 32, 3, 5, 6
-    specs, class_of, M, finals, init = random_tables(rng, S, C, A, k, NQ)
+    NQ, W, eps, B, T, A, k, C = 2, 8000, 7990, 9, 32, 3, 5, 6
+    specs, class_of, M, finals, init = random_tables(rng, S, C, A, k, NQ,
+                                                     tables)
     c0 = torch.from_numpy((rng.random((B, W, S)) < 0.01).astype(
         np.float32)).to(dev)
     args = (torch.from_numpy(rng.normal(size=(T, B, A)).astype(
@@ -216,9 +267,12 @@ def test_forced_split_in_global_memory_matches_plain_version(dev, split):
     kw = dict(init_mask=torch.from_numpy(init).to(dev), epsilon=eps,
               start_pos=torch.from_numpy(rng.integers(0, 10 ** 6, B)).to(
                   dev))
+    sparse = fused_scan.KERNEL.sparse_launches
     got = ops.cer_pipeline(*args, impl="fused", split=split, **kw)
     torch.cuda.synchronize()
     assert fused_scan.KERNEL.last_plan == (False, split)
+    assert fused_scan.KERNEL.sparse_launches == sparse + takes_sparse_step(
+        tables, S)
     want = ops.cer_pipeline(*args, impl="ref", **kw)
     for g, w in zip(got, want):
         assert equal(g, w)

@@ -8,7 +8,16 @@ kernel itself runs in ``test_torch_cuda.py`` on a card.  A split changes
 no result, so on the CPU ``cer_pipeline(split=...)`` runs the plain version
 and must still equal the JAX package's ``impl="ref"`` oracle exactly, and
 refuse what the kernel refuses.
+
+The narrow builds' sparse step reads each table as index lists, one byte
+a source (``packed_lists``, ``table_lists``), built once per table: here
+they must give the tables back exactly, in the layout the kernel reads,
+and report a table past the cap, with a weight other than 1, or outside
+the 32-state build as dense.
 """
+import json
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -181,3 +190,127 @@ def test_split_refusals_on_every_route(impl, what):
             torch.zeros((B, W, S)), init_mask=torch.from_numpy(init),
             epsilon=5, impl=impl, **kw)
     assert fused_scan.KERNEL.launches == launches
+
+
+# ---------------------------------------------------------------------------
+# the sparse step's index lists
+# ---------------------------------------------------------------------------
+
+CAP = fused_scan.SPARSE_CAP
+NONE = fused_scan.NONE
+
+
+def capped_table(rng, C, S, deg):
+    """(C, S, S) of 0/1 with at most ``deg`` non-zeros in a column, exactly
+    ``deg`` in column 0 of class 0 (``deg`` ≤ S)."""
+    M = np.zeros((C, S, S), np.float32)
+    for c in range(C):
+        for u in range(S):
+            k = deg if (c, u) == (0, 0) else int(rng.integers(0, deg + 1))
+            M[c, rng.choice(S, size=k, replace=False), u] = 1.0
+    return M
+
+
+def unpack(words, R):
+    """The 0/1 table (..., R, N) whose columns ``words`` (..., N) list, one
+    source a byte as the kernel reads them; checks the bytes ascend and
+    that only empty bytes follow an empty byte."""
+    w = words.long() & 0xFFFFFFFF
+    out = torch.zeros(words.shape[:-1] + (R,) + words.shape[-1:])
+    flat_w, flat_o = w.reshape(-1, w.shape[-1]), out.view(-1, R,
+                                                          w.shape[-1])
+    for i in range(flat_w.shape[0]):
+        for n in range(flat_w.shape[1]):
+            srcs = [(int(flat_w[i, n]) >> (8 * k)) & 0xFF for k in range(CAP)]
+            live = [x for x in srcs if x != NONE]
+            assert srcs == live + [NONE] * (CAP - len(live))
+            assert live == sorted(set(live))
+            for x in live:
+                flat_o[i, x, n] = 1.0
+    return out
+
+
+@pytest.mark.parametrize("S,C,deg", [(1, 3, 1), (5, 4, 1), (7, 6, 2),
+                                     (16, 3, 3), (28, 5, CAP), (32, 2, 0)])
+def test_lists_give_the_tables_back(S, C, deg):
+    rng = np.random.default_rng(S * 7 + deg)
+    M = torch.from_numpy(capped_table(rng, C, S, deg))
+    # up to three queries: columns of a capped table, each ≤ deg finals
+    NQ = min(3, S)
+    F = torch.from_numpy(capped_table(rng, 1, S, deg)[0, :, :NQ].T.copy())
+    words, D = fused_scan.packed_lists(M)
+    fwords, DF = fused_scan.packed_lists(F.t())
+    # D is the largest column in-degree (at least 1)
+    assert words.dtype == fwords.dtype == torch.int32
+    assert tuple(words.shape) == (C, S) and D == max(deg, 1)
+    assert tuple(fwords.shape) == (NQ,)
+    assert DF == max(int((F != 0).sum(1).max()), 1)
+    assert torch.equal(unpack(words, S), M)
+    assert torch.equal(unpack(fwords, S).t(), F)
+    src, w = fused_scan.column_lists(M)
+    assert src.shape == (C, max(deg, 1), S) and (w[w != 0] == 1).all()
+
+
+@pytest.mark.parametrize("where", ["column", "finals", "weight"])
+def test_tables_past_the_cap_keep_the_dense_product(where):
+    rng = np.random.default_rng(5)
+    S = 19
+    M = torch.from_numpy(capped_table(rng, 3, S, 2))
+    F = torch.zeros((2, S))
+    F[:, 1] = 1.0
+    if where == "column":
+        M[1, :CAP + 1, 4] = 1.0           # one column of CAP + 1 sources
+        assert fused_scan.packed_lists(M) is None
+    elif where == "finals":
+        F[1, 2:CAP + 3] = 1.0             # a query of CAP + 1 final states
+        assert fused_scan.packed_lists(F.t()) is None
+    else:
+        M[2, 3, 5] = 2.0                  # a weight the sum cannot skip
+        assert fused_scan.packed_lists(M) is None
+    assert fused_scan.table_lists(M, F) is None
+    # at the cap itself the lists still take it
+    assert fused_scan.column_lists(M[:, :CAP], cap=CAP) is not None
+
+
+@pytest.mark.parametrize("S,deg,sparse", [(7, 1, False), (16, 1, False),
+                                          (17, 1, True), (28, 2, True),
+                                          (32, CAP, True), (28, CAP + 1, False),
+                                          (40, 1, False)])
+def test_only_the_32_state_build_takes_lists(S, deg, sparse):
+    """Up to SPARSE_CAP sources a state in the 32-state build; the 8- and
+    16-state builds and the wide build keep the dense product."""
+    rng = np.random.default_rng(S + deg)
+    M = torch.from_numpy(capped_table(rng, 3, S, deg))
+    F = torch.zeros((2, S))
+    F[:, -1] = 1.0
+    assert fused_scan.table_cap(S) == (CAP if 16 < S <= 32 else 0)
+    assert (fused_scan.table_lists(M, F) is not None) == sparse
+
+
+def test_seq3_pack4_tables_take_two_sources_a_state():
+    from repro_torch.vector import MultiQueryEngine
+    cfg = json.loads((Path(__file__).resolve().parents[1] / "bench" /
+                      "configs" / "seq3_pack4.json").read_text())
+    qs = [cfg["query"].format(seq=q, window=cfg["window"])
+          for q in cfg["queries"]]
+    t = MultiQueryEngine(qs, device="cpu").tables
+    assert tuple(t.m_all.shape) == (512, 28, 28)
+    (words, D), (fwords, DF) = fused_scan.table_lists(t.m_all, t.finals)
+    assert (D, DF) == (2, 1)              # two sources a state, one final
+    assert tuple(words.shape) == (512, 28) and tuple(fwords.shape) == (4,)
+    assert torch.equal(unpack(words[:8], 28), t.m_all[:8])
+
+
+def test_lists_are_built_once_per_table():
+    rng = np.random.default_rng(2)
+    M = torch.from_numpy(capped_table(rng, 2, 20, 2))
+    F = torch.zeros(20)
+    F[3] = 1.0
+    first = fused_scan.table_lists(M, F[None, :])
+    # a fresh view of the same finals finds the lists kept on its base
+    again = fused_scan.table_lists(M, F[None, :])
+    assert all(a is b for a, b in zip(first, again))
+    M[0, 0, 0] += 0.0                     # an in-place write: built anew
+    rebuilt = fused_scan.table_lists(M, F[None, :])
+    assert rebuilt[0] is not first[0] and rebuilt[1] is first[1]
+    assert torch.equal(rebuilt[0][0], first[0][0])
