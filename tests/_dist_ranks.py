@@ -161,8 +161,6 @@ def rank_main(rank: int, world: int, work: str, ckpt_dir: str = "") -> None:
     ``ckpt_dir``) the dry run on a second group, with ``RANK`` and
     ``WORLD_SIZE`` set as ``torchrun`` sets them."""
     try:
-        import torch
-        torch.set_num_threads(1)
         from repro_torch.launch.mesh import init_stream_group
         out = {}
         g = init_stream_group(os.path.join(work, "store"), rank=rank,
@@ -225,7 +223,6 @@ def moe_rank_main(rank: int, world: int, work: str) -> None:
     ``moe_rank<r>.npz``."""
     try:
         import torch
-        torch.set_num_threads(1)
         from repro_torch.configs import get_smoke_config
         from repro_torch.launch.mesh import (init_model_mesh,
                                              init_stream_group,

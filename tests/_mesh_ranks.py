@@ -83,9 +83,7 @@ def _group(work: str, kind: str, rank: int, world: int):
 
 def _run(kind: str, body, rank: int, world: int, work: str) -> None:
     try:
-        import torch
         import torch.distributed as dist
-        torch.set_num_threads(1)
         _group(work, kind, rank, world)
         try:
             out = body(rank, work)

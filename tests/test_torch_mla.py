@@ -167,14 +167,31 @@ def ref_decode_expanded(monkeypatch):
 
 @pytest.fixture(scope="module")
 def stack_runs():
-    """Both packages' teacher forcing (with MTP), prefill (caches kept)
-    and four decode steps in each MLA form, over the same weights and
-    tokens."""
+    """Both packages' teacher forcing (with MTP) and prefill (caches kept),
+    once; then four decode steps in each MLA form, each from a copy of
+    the same grown caches, over the same weights and tokens."""
     cfg, tcfg = configs()
     params, _ = ref_init_params(cfg, jax.random.PRNGKey(0))
     model = params_from_jax(to_np(params), tcfg, "cpu")
     toks = np.random.default_rng(6).integers(0, cfg.vocab_size, (B, S))
-    runs = {}
+    packages = (("ref", ref_forward_train, ref_prefill, ref_grow_caches,
+                 ref_decode_step, jnp.asarray, params, cfg),
+                ("port", forward_train, prefill, serve.grow_caches,
+                 decode_step, torch.from_numpy, model, tcfg))
+    runs, grown = {}, {}
+    for name, fwd, pref, grow, _, wrap, m, c in packages:
+        full, aux, mtp = fwd(m, c, {"tokens": wrap(toks)})
+        logits, caches = pref(m, c, {"tokens": wrap(toks[:, :S0])})
+        kept = to_np(caches) if name == "ref" else {
+            k: v.clone() if torch.is_tensor(v) else v
+            for k, v in leaves(caches).items()}
+        grown[name] = grow(caches, S)
+        run = {"full": full, "aux": aux, "mtp": mtp, "prefill": logits,
+               "prefill_caches": kept, "index": caches["index"],
+               "grown": to_np(grown[name]) if name == "ref" else
+               leaves(grown[name])}
+        for absorbed in (True, False):
+            runs[name, absorbed] = dict(run, steps=[], caches=[])
     mp = pytest.MonkeyPatch()
     try:
         for absorbed in (True, False):
@@ -183,23 +200,12 @@ def stack_runs():
                 for m in model.modules():
                     if isinstance(m, MLA):
                         m.absorbed = False
-            for name, fwd, pref, grow, dec, wrap, m, c in (
-                    ("ref", ref_forward_train, ref_prefill, ref_grow_caches,
-                     ref_decode_step, jnp.asarray, params, cfg),
-                    ("port", forward_train, prefill, serve.grow_caches,
-                     decode_step, torch.from_numpy, model, tcfg)):
-                full, aux, mtp = fwd(m, c, {"tokens": wrap(toks)})
-                logits, caches = pref(m, c, {"tokens": wrap(toks[:, :S0])})
-                kept = to_np(caches) if name == "ref" else {
-                    k: v.clone() if torch.is_tensor(v) else v
-                    for k, v in leaves(caches).items()}
-                run = {"full": full, "aux": aux, "mtp": mtp,
-                       "prefill": logits, "prefill_caches": kept,
-                       "steps": [], "caches": []}
-                caches = grow(caches, S)
-                run["grown"] = to_np(caches) if name == "ref" else {
-                    k: v.clone() if torch.is_tensor(v) else v
-                    for k, v in leaves(caches).items()}
+            for name, _, _, _, dec, wrap, m, c in packages:
+                run = runs[name, absorbed]
+                # the port decodes in place: each form from its own copy
+                caches = grown[name] if name == "ref" else jax.tree.map(
+                    lambda v: v.clone() if torch.is_tensor(v) else v,
+                    grown[name])
                 for t in range(S0, S):
                     logits, caches = dec(m, c, wrap(toks[:, t:t + 1]),
                                          caches, t)
@@ -207,7 +213,6 @@ def stack_runs():
                     run["caches"].append(to_np(caches) if name == "ref" else
                                          {k: v.clone() for k, v in
                                           leaves(caches["segments"]).items()})
-                runs[name, absorbed] = run
     finally:
         mp.undo()
         for m in model.modules():
@@ -239,6 +244,7 @@ def test_prefill_and_its_caches_match_reference(stack_runs):
     cfg, _, runs = stack_runs
     ref, port = runs["ref", True], runs["port", True]
     close(ref["prefill"], port["prefill"], 1e-5)
+    assert int(ref["index"]) == port["index"] == S0
     want = {k: v for k, v in leaves(ref["prefill_caches"]).items()
             if k != "/index"}
     got = {k: v for k, v in port["prefill_caches"].items() if k != "/index"}

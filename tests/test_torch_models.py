@@ -6,7 +6,9 @@ Inputs are drawn with numpy from a seed; weights are the reference's
 layers and GQA 1e-5; the stacks' logits 1e-4 and caches 1e-5; decode ≡
 teacher forcing 5e-4, ``test_archs.py``'s.
 """
+import ast
 import dataclasses
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -23,16 +25,22 @@ from repro.models import init_params as ref_init_params
 from repro.models import layers as rlayers
 from repro.models import prefill as ref_prefill
 from repro_torch import configs as tcfgs
-from repro_torch.launch import serve
 from repro_torch.models import (attention, decode_step, forward_train,
                                 init_decode_caches, init_params, layers,
                                 params_from_jax, prefill)
 
 DENSE_ARCHS = ["qwen2p5_14b", "qwen3_32b", "starcoder2_15b",
                "deepseek_coder_33b"]
-# the other families' own tests: tests/test_torch_moe.py,
-# tests/test_torch_recurrent.py, tests/test_torch_encdec.py and
-# tests/test_torch_mla.py
+HERE = Path(__file__).parent
+# each family's file: the name of its arch list and its stack parity test
+FAMILY_PARITY = {
+    "test_torch_models.py": ("DENSE_ARCHS", "test_stack_matches_reference"),
+    "test_torch_moe.py": ("ARCH", "test_granite_stack_matches_reference"),
+    "test_torch_recurrent.py": ("ARCHS", "test_stack_matches_reference"),
+    "test_torch_mla.py": ("ARCH", "test_decode_matches_reference"),
+    "test_torch_encdec.py": (
+        "ARCHS", "test_decode_matches_reference_and_teacher_forcing"),
+}
 
 
 def to_np(tree):
@@ -147,6 +155,17 @@ def test_gqa_prefill_and_decode_match_reference(chunks):
         close(cache["v"], tcache["v"], 1e-5)
 
 
+def close_caches(caches, tcaches, atol):
+    """Every leaf of the port's cache segments ≡ the reference's, path for
+    path."""
+    want = jax.tree_util.tree_leaves_with_path(caches["segments"])
+    got = jax.tree_util.tree_leaves_with_path(
+        jax.tree.map(lambda t: t.numpy(), tcaches["segments"]))
+    assert [p for p, _ in want] == [p for p, _ in got]
+    for (_, w), (_, g) in zip(want, got):
+        close(w, g, atol)
+
+
 def both_models(arch):
     cfg, tcfg = rcfgs.get_smoke_config(arch), tcfgs.get_smoke_config(arch)
     params, _ = ref_init_params(cfg, jax.random.PRNGKey(0))
@@ -169,7 +188,7 @@ def test_stack_matches_reference(arch):
     tlogits, tcaches = prefill(model, tcfg,
                                {"tokens": torch.from_numpy(toks[:, :S0])})
     close(logits, tlogits, 1e-4)
-    assert tcaches["index"] == S0
+    assert tcaches["index"] == int(caches["index"]) == S0
     caches = ref_grow_caches(caches, S)
     grown, _ = init_decode_caches(tcfg, B, S, device="cpu")
     for seg, tseg in zip(tcaches["segments"], grown["segments"]):
@@ -183,10 +202,8 @@ def test_stack_matches_reference(arch):
         tlogits, tcaches = decode_step(model, tcfg, torch.from_numpy(tok),
                                        tcaches, t)
         close(logits, tlogits, 1e-4)
-        assert tcaches["index"] == t + 1
-        for seg, tseg in zip(caches["segments"], tcaches["segments"]):
-            for k in ("k", "v"):
-                close(seg["mixer"][k], tseg["mixer"][k], 1e-5)
+        assert tcaches["index"] == int(caches["index"]) == t + 1
+        close_caches(caches, tcaches, 1e-5)
 
 
 def test_decode_matches_teacher_forcing():
@@ -234,47 +251,22 @@ def test_registry_matches_reference():
     assert padded.padded_vocab == 288
 
 
-def test_every_arch_serves_as_the_reference():
-    """Every arch of the registry at its smoke config on the CPU, weights
-    carried from the reference: prefill (over the arch's frames or
-    patches, from a seed) and one decode step ≡ ``repro``'s, logits and
-    every cache leaf at 1e-4."""
-    B, S0 = 2, 6
-    for arch in rcfgs.ARCHS:
-        cfg, tcfg = rcfgs.get_smoke_config(arch), tcfgs.get_smoke_config(arch)
-        params, _ = ref_init_params(cfg, jax.random.PRNGKey(0))
-        model = params_from_jax(to_np(params), tcfg, "cpu")
-        rng = np.random.default_rng(11)
-        batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S0 + 1))}
-        if cfg.encoder_layers:
-            batch["frames"] = draw(rng, B, cfg.encoder_seq, cfg.d_model)
-        if cfg.frontend == "vision_stub":
-            batch["patches"] = draw(rng, B, cfg.frontend_seq,
-                                    cfg.frontend_dim)
-        toks = batch["tokens"]
-        b0 = dict(batch, tokens=toks[:, :S0])
-        logits, caches = ref_prefill(params, cfg,
-                                     {k: jnp.asarray(v) for k, v in b0.items()})
-        tlogits, tcaches = prefill(model, tcfg, {k: torch.from_numpy(v)
-                                                 for k, v in b0.items()})
-        close(logits, tlogits, 1e-4)
-        index = int(caches["index"])
-        assert tcaches["index"] == index, arch
-        caches = ref_grow_caches(caches, index + 1)
-        tcaches = serve.grow_caches(tcaches, index + 1)
-        logits, caches = ref_decode_step(params, cfg,
-                                         jnp.asarray(toks[:, S0:]), caches,
-                                         index)
-        tlogits, tcaches = decode_step(model, tcfg,
-                                       torch.from_numpy(toks[:, S0:]),
-                                       tcaches, index)
-        close(logits, tlogits, 1e-4)
-        want = jax.tree_util.tree_leaves_with_path(caches["segments"])
-        got = jax.tree_util.tree_leaves_with_path(
-            jax.tree.map(lambda t: t.numpy(), tcaches["segments"]))
-        assert [p for p, _ in want] == [p for p, _ in got], arch
-        for (path, w), (_, g) in zip(want, got):
-            close(w, g, 1e-4)
+def test_every_arch_has_a_family_parity_case():
+    """Every arch of the registry is held against the reference by one
+    family file's stack test (prefill, decode steps, logits, every cache
+    leaf and the cache index): each file's arch list, read from its
+    source, and the test that runs over it."""
+    found = []
+    for name, (var, test) in FAMILY_PARITY.items():
+        tree = ast.parse((HERE / name).read_text())
+        [archs] = [ast.literal_eval(node.value) for node in tree.body
+                   if isinstance(node, ast.Assign)
+                   and [t.id for t in node.targets
+                        if isinstance(t, ast.Name)] == [var]]
+        assert test in {node.name for node in tree.body
+                        if isinstance(node, ast.FunctionDef)}, (name, test)
+        found += [archs] if isinstance(archs, str) else archs
+    assert sorted(found) == sorted(rcfgs.ARCHS)
 
 
 def test_params_from_jax_refuses_a_missing_extra_or_misshapen_leaf():

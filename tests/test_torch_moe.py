@@ -232,6 +232,7 @@ def test_granite_stack_matches_reference(granite):
     tlogits, tcaches = prefill(model, tcfg,
                                {"tokens": torch.from_numpy(toks[:, :S0])})
     close(logits, tlogits, 1e-4)
+    assert tcaches["index"] == int(caches["index"]) == S0
     caches = ref_grow_caches(caches, S)
     tcaches = serve.grow_caches(tcaches, S)
     for t in range(S0, S):
@@ -241,9 +242,13 @@ def test_granite_stack_matches_reference(granite):
         tlogits, tcaches = decode_step(model, tcfg, torch.from_numpy(tok),
                                        tcaches, t)
         close(logits, tlogits, 1e-4)
-        for k in ("k", "v"):
-            close(caches["segments"][0]["mixer"][k],
-                  tcaches["segments"][0]["mixer"][k], 1e-5)
+        assert tcaches["index"] == int(caches["index"]) == t + 1
+        want = jax.tree_util.tree_leaves_with_path(caches["segments"])
+        got = jax.tree_util.tree_leaves_with_path(
+            jax.tree.map(lambda v: v.numpy(), tcaches["segments"]))
+        assert [p for p, _ in want] == [p for p, _ in got]
+        for (_, w), (_, g) in zip(want, got):
+            close(w, g, 1e-5)
 
 
 def test_granite_decode_matches_teacher_forcing(granite):

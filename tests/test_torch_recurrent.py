@@ -221,7 +221,7 @@ def stack_runs(request):
                     for k, v in leaves(grown).items()}
             kept_ids = {k: v is pre[k] for k, v in leaves(grown).items()}
         run = {"full": full, "aux": aux, "prefill": logits, "grown": kept,
-               "steps": [], "caches": []}
+               "index": caches["index"], "steps": [], "caches": []}
         if name == "port":
             run["grown_is_prefill"] = kept_ids
         caches = grown
@@ -242,6 +242,7 @@ def test_stack_matches_reference(stack_runs):
     close(ref["full"], port["full"], 1e-4)
     assert float(ref["aux"]) == float(port["aux"]) == 0.0
     close(ref["prefill"], port["prefill"], 1e-4)
+    assert int(ref["index"]) == port["index"] == S0
     for want, got, wc, gc in zip(ref["steps"], port["steps"], ref["caches"],
                                  port["caches"]):
         close(want, got, 1e-4)
